@@ -1,8 +1,9 @@
 #!/usr/bin/env python
 """Compute the f64 CPU oracle ("golden") numbers for the BAL stand-ins.
 
-BASELINE.json:5 demands the TPU f32 solve converge to the reference final
-cost within 1%. The reference mount is empty (SURVEY.md §0), so the binding
+BASELINE.json:5 demands the f32 solve on the accelerator converge to the
+reference final cost within 1%. The reference mount is empty (SURVEY.md §0),
+so the binding
 oracle is this framework's own LM run in float64 on CPU — same algorithm,
 same problem, same iteration budget as the bench — recorded once into
 ``data/goldens/<problem>.json`` and committed. bench.py reports

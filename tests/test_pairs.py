@@ -165,40 +165,6 @@ def test_schur_sparse_disconnected_camera():
     np.testing.assert_allclose(dxp, dxp_d, rtol=1e-6, atol=1e-9)
 
 
-def test_schur_sparse_pallas_interpret_matches_jnp():
-    """The Pallas seg_plan/ci_plan path (interpret mode) equals the jnp
-    fallback on the same plan."""
-    from tpu_ba.kernels import segsum as segsum_mod
-
-    problem, B = _system(seed=8)
-    pairs_plain = _plan(problem)
-    pairs_k = build_pair_plan(
-        problem.cam_idx, problem.pt_idx, problem.n_obs,
-        problem.cameras.shape[0], problem.points.shape[0], pad_multiple=16,
-        with_kernel_plans=True)
-    assert pairs_k.seg_plan is not None and pairs_k.ci_plan is not None
-
-    # route the kernel through interpret mode for CPU CI
-    orig = segsum_mod.sorted_segment_sum_t
-
-    def interp(values_t, keys, n_out, plan=None, **kw):
-        kw["interpret"] = True
-        return orig(values_t, keys, n_out, plan=plan, **kw)
-
-    segsum_mod.sorted_segment_sum_t = interp
-    try:
-        dxc_k, dxp_k, _, _ = solve_schur_sparse(
-            B, 1e-3, pairs_k, cg_max_iters=500, cg_tol=1e-14,
-            diag_floor=1e-6, diag_ceil=1e32)
-    finally:
-        segsum_mod.sorted_segment_sum_t = orig
-    dxc, dxp, _, _ = solve_schur_sparse(
-        B, 1e-3, pairs_plain, cg_max_iters=500, cg_tol=1e-14,
-        diag_floor=1e-6, diag_ceil=1e32)
-    np.testing.assert_allclose(dxc_k, dxc, rtol=1e-9, atol=1e-11)
-    np.testing.assert_allclose(dxp_k, dxp, rtol=1e-9, atol=1e-11)
-
-
 def test_lm_with_schur_sparse_converges_like_schur_pcg():
     problem, gt = make_synthetic_problem(
         8, 120, obs_per_point=4, pixel_noise=0.5, seed=9,
@@ -262,7 +228,7 @@ def test_all_heavy_tracks_hybrid():
 
 def test_schur_sparse_symmetric_matches_oracles():
     """Symmetric (ci ≤ cj) pair storage + transposed matvec pass equals the
-    full enumeration and the dense oracle, jnp and interpret-Pallas paths."""
+    full enumeration and the dense oracle."""
     problem, B = _system(seed=13)
     pairs_full = _plan(problem)
     pairs_sym = build_pair_plan(
@@ -270,10 +236,6 @@ def test_schur_sparse_symmetric_matches_oracles():
         problem.cameras.shape[0], problem.points.shape[0], pad_multiple=16,
         symmetric=True)
     assert pairs_sym.n_pairs < pairs_full.n_pairs
-    pairs_sym_k = build_pair_plan(
-        problem.cam_idx, problem.pt_idx, problem.n_obs,
-        problem.cameras.shape[0], problem.points.shape[0], pad_multiple=128,
-        symmetric=True, with_kernel_plans=True)
     for lam in [1e-6, 1e-3, 1e0]:
         dxc_d, dxp_d = solve_dense(B, lam)
         dxc, dxp, _, _ = solve_schur_sparse(
@@ -281,10 +243,6 @@ def test_schur_sparse_symmetric_matches_oracles():
             diag_floor=1e-6, diag_ceil=1e32)
         np.testing.assert_allclose(dxc, dxc_d, rtol=1e-6, atol=1e-9)
         np.testing.assert_allclose(dxp, dxp_d, rtol=1e-6, atol=1e-9)
-        dxc_k, dxp_k, _, _ = solve_schur_sparse(
-            B, lam, pairs_sym_k, cg_max_iters=500, cg_tol=1e-14,
-            diag_floor=1e-6, diag_ceil=1e32)
-        np.testing.assert_allclose(dxc_k, dxc_d, rtol=1e-6, atol=1e-9)
 
 
 def test_schur_sparse_symmetric_heavy_hybrid():
@@ -341,9 +299,8 @@ def _ring_system(n_cams=24, pts_per_cam=12, seed=7):
 def test_banded_plan_structure_and_equivalence():
     """On a ring problem the banded plan includes EVERY populated offset
     (window {0,1,2} plus the wraparound offsets — ≤ 32 total, so the plan is
-    FULLY banded with zero leftover segments, the layout the VMEM-resident
-    PCG kernel requires), and solves identically to the dense oracle and the
-    non-banded symmetric path."""
+    FULLY banded with zero leftover segments), and solves identically to the
+    dense oracle and the non-banded symmetric path."""
     problem, B = _ring_system()
     C = problem.cameras.shape[0]
     pairs_b = build_pair_plan(
@@ -352,17 +309,13 @@ def test_banded_plan_structure_and_equivalence():
     pairs_s = build_pair_plan(
         problem.cam_idx, problem.pt_idx, problem.n_obs, C,
         problem.points.shape[0], pad_multiple=16, symmetric=True, banded=False)
-    pairs_bk = build_pair_plan(
-        problem.cam_idx, problem.pt_idx, problem.n_obs, C,
-        problem.points.shape[0], pad_multiple=128, symmetric=True,
-        banded=True, with_kernel_plans=True)
     assert pairs_b.banded
     assert set(pairs_b.band_offsets) >= {0, 1, 2}       # window offsets
     assert max(pairs_b.band_offsets) > 2                # + wraparound offsets
     assert pairs_b.n_segments <= pairs_b.k_band         # fully banded
     for lam in [1e-6, 1e-3, 1e0]:
         dxc_d, dxp_d = solve_dense(B, lam)
-        for pp in (pairs_b, pairs_s, pairs_bk):
+        for pp in (pairs_b, pairs_s):
             dxc, dxp, _, _ = solve_schur_sparse(
                 B, lam, pp, cg_max_iters=800, cg_tol=1e-14,
                 diag_floor=1e-6, diag_ceil=1e32)
@@ -453,13 +406,9 @@ def test_community_covis_disables_banding_and_matches_oracle():
         pad_multiple=16, symmetric=True, banded=True)
     assert not pairs.banded            # coverage admission rejected the band
     assert pairs.track is None         # tracked points re-enumerated as pairs
-    pairs_k = build_pair_plan(
-        problem.cam_idx, problem.pt_idx, problem.n_obs, n_cams, n_pts,
-        pad_multiple=128, symmetric=True, banded=True, with_kernel_plans=True)
     dxc_d, dxp_d = solve_dense(B, 1e-3)
-    for pp in (pairs, pairs_k):
-        dxc, dxp, _, _ = solve_schur_sparse(
-            B, 1e-3, pp, cg_max_iters=800, cg_tol=1e-14,
-            diag_floor=1e-6, diag_ceil=1e32)
-        np.testing.assert_allclose(dxc, dxc_d, rtol=1e-6, atol=1e-9)
-        np.testing.assert_allclose(dxp, dxp_d, rtol=1e-6, atol=1e-9)
+    dxc, dxp, _, _ = solve_schur_sparse(
+        B, 1e-3, pairs, cg_max_iters=800, cg_tol=1e-14,
+        diag_floor=1e-6, diag_ceil=1e32)
+    np.testing.assert_allclose(dxc, dxc_d, rtol=1e-6, atol=1e-9)
+    np.testing.assert_allclose(dxp, dxp_d, rtol=1e-6, atol=1e-9)

@@ -77,17 +77,15 @@ def test_sharded_schur_sparse_matches_single_device():
     assert int(res_8.iterations) == int(res_1.iterations)
 
 
-def test_sharded_schur_sparse_pallas_kernel_parity():
-    """schur_sparse_pallas SHARDED: the sharded plan carries no segsum
-    schedules, but the VMEM PCG kernel + banded matvec run anyway (blk is
-    replicated after the per-retry psum — lm.py passes pcg_kernel=True).
-    Must match the single-device pallas solve at f32 tolerance (the kernel
-    path is f32-only by design). VERDICT r3 missing #5 / next #3."""
+def test_sharded_schur_sparse_f32_parity():
+    """schur_sparse SHARDED in f32 (the precision the card runs): the
+    per-retry psum of the compact blocks reorders f32 sums, yet the solve
+    must match the single-device f32 solve."""
     problem = make_synthetic_problem(
         12, 120, obs_per_point=5, pixel_noise=0.5, seed=4,
         dtype=np.float32, pad_multiple=128,
     )[0]
-    cfg = LMConfig(max_iters=8, linear_solver="schur_sparse_pallas",
+    cfg = LMConfig(max_iters=8, linear_solver="schur_sparse",
                    cg_max_iters=100, cg_tol=1e-6)
     res_1 = solve(problem, cfg)
     mesh = make_mesh()
@@ -104,9 +102,8 @@ def test_sharded_schur_sparse_pallas_kernel_parity():
 
 
 def test_sharded_trackband_engages_and_matches():
-    """VERDICT r4 next #6: the track-major band path runs SHARDED — the
-    sharded plan carries a stacked per-device track layout
-    (shard_stack_track_layout; leading device axis on the point-sharded
+    """The track-major band path runs SHARDED — the sharded plan carries a
+    stacked per-device track layout (shard_stack_track_layout; leading device axis on the point-sharded
     leaves) and the per-device band partials psum with the pair blocks.
     Verifies (a) the layout actually engaged, (b) sharded ≡ single-device."""
     problem = make_synthetic_problem(

@@ -1,11 +1,10 @@
-"""Slot-major band assembly (tpu_ba/solver/slots.py + kernels/slotband.py)
-vs the legacy pair-enumeration oracle.
+"""Slot-major band assembly (tpu_ba/solver/slots.py) vs the legacy
+pair-enumeration oracle.
 
 The slot path generalizes the track-major split to arbitrary short tracks
 (gaps allowed): Venice-window structure. Equivalence bar: _compact_blocks
 with the slot plan == pure pair enumeration, and the full solve matches the
-dense oracle (f64 CPU; the Pallas chain runs in interpret mode via the
-*_pallas plans in tests/test_kernels-style CI)."""
+dense oracle (f64 CPU)."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -116,31 +115,9 @@ def test_slot_solve_matches_dense_oracle():
         np.testing.assert_allclose(dxp, dxp_d, rtol=1e-6, atol=1e-9)
 
 
-def test_slot_kernel_interpret_matches_jnp():
-    """The fused Pallas slot chain (interpret mode on CPU) == jnp oracle."""
-    problem, B = _gappy_system(seed=5)
-    C = problem.cameras.shape[0]
-    P = problem.points.shape[0]
-    kw = dict(pad_multiple=128, symmetric=True, banded=True,
-              slots=True, tracks=False)
-    pairs_j = build_pair_plan(problem.cam_idx, problem.pt_idx, problem.n_obs,
-                              C, P, with_kernel_plans=False, **kw)
-    pairs_k = build_pair_plan(problem.cam_idx, problem.pt_idx, problem.n_obs,
-                              C, P, with_kernel_plans=True, **kw)
-    assert pairs_k.slot is not None and pairs_k.slot.l2_plan is not None
-    pd_j = precompute_pair_data(B, pairs_j)
-    pd_k = precompute_pair_data(B, pairs_k)
-    lam = jnp.asarray(1e-3, B.U.dtype)
-    blk_j = _compact_blocks(B, lam, pairs_j, pd_j, 1e-6, 1e32)
-    blk_k = _compact_blocks(B, lam, pairs_k, pd_k, 1e-6, 1e32)
-    np.testing.assert_allclose(np.asarray(blk_k[:, :pairs_k.k_band]),
-                               np.asarray(blk_j[:, :pairs_j.k_band]),
-                               rtol=1e-9, atol=1e-12)
-
-
 def test_ring_problems_still_prefer_tracks():
     """Consecutive-track structure (the ladybug regime) must keep the
-    cheaper track kernel — slots only take over when tracks don't cover."""
+    cheaper track path — slots only take over when tracks don't cover."""
     problem, _ = _gappy_system(seed=2, drop=False)  # consecutive windows
     C = problem.cameras.shape[0]
     P = problem.points.shape[0]
@@ -149,39 +126,3 @@ def test_ring_problems_still_prefer_tracks():
                             banded=True)
     assert pairs.track is not None
     assert pairs.slot is None
-
-
-def test_fold_damp_vmem_pcg_matches_general_path():
-    """The fold-damp VMEM PCG fast path (undamped U_t + in-kernel damping /
-    Gauss-Jordan block-diagonal inverse) must match the general path (damp +
-    inv_spd_small outside) — f32, interpret mode on CPU."""
-    problem, B64 = _gappy_system(seed=7)
-    B = B64._replace(
-        U=B64.U.astype(jnp.float32), V=B64.V.astype(jnp.float32),
-        W=B64.W.astype(jnp.float32), gc=B64.gc.astype(jnp.float32),
-        gp=B64.gp.astype(jnp.float32))
-    C = problem.cameras.shape[0]
-    P = problem.points.shape[0]
-    pairs = build_pair_plan(problem.cam_idx, problem.pt_idx, problem.n_obs,
-                            C, P, pad_multiple=128, symmetric=True,
-                            banded=True, slots=True, tracks=False,
-                            with_kernel_plans=True)
-    assert pairs.banded and pairs.n_segments <= pairs.k_band
-    pd = precompute_pair_data(B, pairs)
-    assert pd.U_t is not None
-    for lam in [1e-4, 1e-1]:
-        # fold path engages (pcg_kernel=True, jacobi, f32)
-        dxc_f, dxp_f, it_f, ok_f = solve_schur_sparse(
-            B, jnp.asarray(lam, jnp.float32), pairs, pd,
-            cg_max_iters=200, cg_tol=1e-6, diag_floor=1e-6, diag_ceil=1e32,
-            pcg_kernel=True)
-        # general path: same solve without the kernel
-        dxc_g, dxp_g, it_g, ok_g = solve_schur_sparse(
-            B, jnp.asarray(lam, jnp.float32), pairs, pd,
-            cg_max_iters=200, cg_tol=1e-6, diag_floor=1e-6, diag_ceil=1e32,
-            pcg_kernel=False)
-        assert bool(ok_f) and bool(ok_g)
-        scale = float(np.max(np.abs(dxc_g))) or 1.0
-        assert float(np.max(np.abs(np.asarray(dxc_f - dxc_g)))) / scale < 1e-3
-        scale_p = float(np.max(np.abs(dxp_g))) or 1.0
-        assert float(np.max(np.abs(np.asarray(dxp_f - dxp_g)))) / scale_p < 1e-3

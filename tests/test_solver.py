@@ -227,25 +227,3 @@ def test_pinhole_model_freezes_intrinsics():
     res_bal = solve(problem, cfg_frozen)
     np.testing.assert_allclose(float(res.cost), float(res_bal.cost),
                                rtol=1e-12)
-
-
-def test_pt_bucket_reduce_matches_segment_sum():
-    """Degree-bucketed point reduction (opt-in; measured slower on this
-    chip — see build_plans docstring) is EXACT vs segment_sum."""
-    import jax
-    import jax.numpy as jnp
-
-    from tpu_ba.io.synthetic import make_synthetic_problem
-    from tpu_ba.solver.plans import build_plans, pt_segsum_t
-
-    problem, _ = make_synthetic_problem(10, 150, obs_per_point=5, seed=3,
-                                        dtype=np.float64, pad_multiple=128)
-    P = problem.points.shape[0]
-    plans = build_plans(problem.cam_idx, problem.pt_idx, 10, P,
-                        pt_buckets=True)
-    assert plans.bucket_idx
-    O = problem.obs_2d.shape[0]
-    v = jnp.asarray(np.random.default_rng(0).standard_normal((12, O)))
-    a = pt_segsum_t(plans, v, problem.pt_idx, P)
-    b = jax.ops.segment_sum(v.T, problem.pt_idx, P).T
-    np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-12)

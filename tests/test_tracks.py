@@ -1,5 +1,5 @@
-"""Track-major band assembly (tpu_ba/solver/tracks.py + kernels/trackband.py)
-vs the pair-enumeration oracles."""
+"""Track-major band assembly (tpu_ba/solver/tracks.py) vs the
+pair-enumeration oracles."""
 
 import jax
 import jax.numpy as jnp
@@ -104,63 +104,3 @@ def test_compact_blocks_track_vs_legacy():
         np.testing.assert_allclose(np.asarray(blk_t[:, :pairs_t.k_band]),
                                    np.asarray(blk_l[:, :pairs_l.k_band]),
                                    rtol=1e-9, atol=1e-12)
-
-
-def test_fused_track_kernel_matches_jnp():
-    """fused_track_blocks (interpret) == track_blocks_jnp, f32."""
-    from tpu_ba.kernels.trackband import fused_track_blocks
-    from tpu_ba.solver.tracks import build_track_layout, track_blocks_jnp
-
-    problem, B = _mixed_system(dtype=np.float32)
-    C = problem.cameras.shape[0]
-    P = problem.points.shape[0]
-    pairs = build_pair_plan(problem.cam_idx, problem.pt_idx, problem.n_obs,
-                            C, P, pad_multiple=128, symmetric=True,
-                            banded=True, tracks=True, with_kernel_plans=True)
-    tl = pairs.track
-    assert tl is not None and tl.plan is not None
-    pd = precompute_pair_data(B, pairs)
-    for lam in [1e-4, 1e0]:
-        ref = track_blocks_jnp(pd.trk_W, pd.trk_V, jnp.float32(lam), tl, 9,
-                               1e-6, 1e32)
-        out = fused_track_blocks(pd.trk_W, pd.trk_V, jnp.float32(lam), tl,
-                                 dc=9, diag_floor=1e-6, diag_ceil=1e32,
-                                 interpret=True)
-        # both paths are f32 with different summation orders (kernel: 3-pass
-        # bf16 one-hot matmul; oracle: sequential segment_sum) — on blocks
-        # spanning ~1e8 at small λ the achievable agreement is ~5e-3 rel
-        np.testing.assert_allclose(np.asarray(out[:, :tl.n_out]),
-                                   np.asarray(ref),
-                                   rtol=2e-2, atol=5e-2)
-
-
-def test_fused_track_kernel_multichunk():
-    """Chunk-boundary coverage: force a small reduction chunk so keys near
-    boundaries exercise the (dmax−1)-key margin of the work list — the
-    configuration real BAL-scale plans run with (n_chunks > 1)."""
-    import dataclasses
-
-    from tpu_ba.kernels.trackband import fused_track_blocks
-    from tpu_ba.solver.tracks import _build_margin_plan, track_blocks_jnp
-
-    problem, B = _mixed_system(n_cams=300, pts_per_cam=3, seed=3,
-                               dtype=np.float32)
-    C = problem.cameras.shape[0]
-    P = problem.points.shape[0]
-    pairs = build_pair_plan(problem.cam_idx, problem.pt_idx, problem.n_obs,
-                            C, P, pad_multiple=128, symmetric=True,
-                            banded=True, tracks=True, with_kernel_plans=True)
-    tl = pairs.track
-    assert tl is not None
-    plan = _build_margin_plan(np.asarray(tl.keys), tl.n_out,
-                              tile=512, margin=tl.dmax - 1, chunk=128)
-    assert plan.n_chunks > 1                  # boundaries actually exercised
-    tl = dataclasses.replace(tl, plan=plan)
-    pd = precompute_pair_data(B, pairs)
-    ref = track_blocks_jnp(pd.trk_W, pd.trk_V, jnp.float32(1e-2), tl, 9,
-                           1e-6, 1e32)
-    out = fused_track_blocks(pd.trk_W, pd.trk_V, jnp.float32(1e-2), tl,
-                             dc=9, diag_floor=1e-6, diag_ceil=1e32,
-                             interpret=True)
-    np.testing.assert_allclose(np.asarray(out[:, :tl.n_out]),
-                               np.asarray(ref), rtol=2e-2, atol=5e-2)

@@ -6,9 +6,9 @@ SURVEY.md §2.1 R8, §5); here it is deterministic resumable optimizer state
 enough to restart a distributed run from the last accepted state
 (SURVEY.md §5 "failure detection / elastic recovery" row).
 
-Format: safetensors (installed in this image) + a JSON manifest. All arrays
-are materialized to host before writing; loading returns numpy (the caller
-re-places onto devices/mesh).
+Format: one ``.npz`` of arrays (numpy only, no pickled objects) + a JSON
+manifest. All arrays are materialized to host before writing; loading
+returns numpy (the caller re-places onto devices/mesh).
 """
 
 from __future__ import annotations
@@ -22,8 +22,6 @@ import numpy as np
 def save_checkpoint(path: str, *, cameras, points, lam=None, iteration=0,
                     cost=None, extra: dict | None = None) -> None:
     """Write optimizer state. ``path`` is a directory."""
-    from safetensors.numpy import save_file
-
     os.makedirs(path, exist_ok=True)
     tensors = {
         "cameras": np.asarray(cameras),
@@ -44,9 +42,10 @@ def save_checkpoint(path: str, *, cameras, points, lam=None, iteration=0,
     # tmp+rename for BOTH files: a kill mid-dump (the exact failure the
     # in-loop checkpointing targets) must leave the previous complete
     # checkpoint intact (ADVICE.md round 2)
-    st_tmp = os.path.join(path, "state.safetensors.tmp")
-    save_file(tensors, st_tmp)
-    os.replace(st_tmp, os.path.join(path, "state.safetensors"))
+    st_tmp = os.path.join(path, "state.npz.tmp")
+    with open(st_tmp, "wb") as fh:
+        np.savez(fh, **tensors)
+    os.replace(st_tmp, os.path.join(path, "state.npz"))
     tmp = os.path.join(path, "manifest.json.tmp")
     with open(tmp, "w") as fh:
         json.dump(manifest, fh, indent=1)
@@ -55,9 +54,8 @@ def save_checkpoint(path: str, *, cameras, points, lam=None, iteration=0,
 
 def load_checkpoint(path: str) -> dict:
     """Load optimizer state → dict with cameras/points (numpy) + manifest."""
-    from safetensors.numpy import load_file
-
-    tensors = load_file(os.path.join(path, "state.safetensors"))
+    with np.load(os.path.join(path, "state.npz"), allow_pickle=False) as z:
+        tensors = {k: z[k] for k in z.files}
     with open(os.path.join(path, "manifest.json")) as fh:
         manifest = json.load(fh)
     out = dict(manifest)

@@ -31,10 +31,9 @@ def _add_ba(sub):
     p.add_argument("--max-iters", type=int, default=50)
     p.add_argument("--cg-iters", type=int, default=50)
     p.add_argument("--cg-tol", type=float, default=1e-2)
-    p.add_argument("--solver", default="schur_pcg",
-                   choices=["dense", "schur_pcg", "schur_pcg_pallas",
-                            "schur_dense", "schur_dense_pallas",
-                            "schur_sparse", "schur_sparse_pallas"],
+    p.add_argument("--solver", default="schur_sparse",
+                   choices=["dense", "schur_pcg", "schur_dense",
+                            "schur_sparse"],
                    help="linear solver for the LM inner step")
     p.add_argument("--robust", choices=["none", "huber", "cauchy", "arctan"],
                    default="none")
@@ -279,9 +278,14 @@ def cmd_posegraph(args) -> int:
 
 
 def cmd_bench(args) -> int:
+    """Run bench.py in a child process. This process never touches JAX's
+    devices, so the child is the only process on the card."""
+    import os
     import subprocess
 
-    cmd = [sys.executable, "bench.py", "--problem", args.problem]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cmd = [sys.executable, os.path.join(repo, "bench.py"),
+           "--problem", args.problem]
     if args.quick:
         cmd.append("--quick")
     return subprocess.call(cmd)

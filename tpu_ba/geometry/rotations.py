@@ -1,6 +1,6 @@
 """Rotation parameterizations: angle-axis (Rodrigues), quaternions, matrices.
 
-Design notes (TPU-first):
+Design notes:
   * Every function is a pure, dtype-polymorphic jnp function, safe under
     ``vmap``/``jit``/``grad`` — small-angle branches are handled with
     ``jnp.where`` on *safe* intermediates (no NaN gradients at theta=0).

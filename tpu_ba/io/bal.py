@@ -33,6 +33,10 @@ def _cross_np(a, b):
 
 from tpu_ba.core import BAProblem, make_problem
 
+_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), "data", "cache")
+
 # (n_cameras, n_points, n_observations) of the canonical BAL problems named in
 # BASELINE.json. Used to synthesize dimension-matched stand-ins offline.
 BAL_DATASET_DIMS = {
@@ -170,11 +174,12 @@ def make_bal_like_problem(
         raise ValueError(f"covis must be 'ring' or 'community', got {covis!r}")
     n_cams, n_pts, n_obs = BAL_DATASET_DIMS[name]
 
-    # disk cache: generation is deterministic but numpy on this VM is slow
+    # disk cache (gitignored, inside the checkout): generation is
+    # deterministic, and the cache skips it on re-runs
     ctag = "" if covis == "ring" else f"_{covis}"
     cache_key = (f"balstandin_{name}{ctag}_s{seed}_n{pixel_noise}_c{cam_perturb}"
                  f"_p{point_perturb}_i{intrinsics_perturb}_o{outlier_frac}")
-    cache_path = os.path.join("data", "cache", cache_key + ".npz")
+    cache_path = os.path.join(_CACHE_DIR, cache_key + ".npz")
     if os.path.exists(cache_path):
         z = np.load(cache_path)
         problem = make_problem(
@@ -441,16 +446,3 @@ def _community_scene(rng, n_cams: int, n_pts: int, n_obs: int):
     cams_gt = cams_gt[np.argsort(relabel)]
     cam_idx = relabel[cam_idx]
     return cams_gt, points_gt, cam_idx.astype(np.int32), pt_idx.astype(np.int32)
-
-
-def find_bal_file(name: str, search_dirs=("data", "/root/data")) -> str | None:
-    """Locate a real BAL file if the driver ever provides one."""
-    candidates = [
-        f"problem-{name}.txt", f"problem-{name}.txt.gz", f"{name}.txt", f"{name}.txt.gz",
-    ]
-    for d in search_dirs:
-        for c in candidates:
-            p = os.path.join(d, c)
-            if os.path.exists(p):
-                return p
-    return None

@@ -80,10 +80,8 @@ def _jac_one(cam, X, obs):
     return r, Jc, Jp
 
 
-# out_axes=-1: the observation axis lands on TPU *lanes*. AoS outputs
-# (O, 2, 9) would be tile-padded T(8,128) on their tiny minor dims — an
-# 8–40× physical-memory blowup at BAL scale (measured: 2.78 GB for Jc at
-# ladybug-1723 vs 87 MB lane-major).
+# out_axes=-1: the observation axis is the last (contiguous) axis, the
+# lane-major layout the assembly (tpu_ba/solver/normal.py) consumes.
 _jac_batch = jax.vmap(_jac_one, in_axes=(0, 0, 0), out_axes=-1)
 
 

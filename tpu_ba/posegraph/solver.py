@@ -9,10 +9,9 @@ SURVEY.md §2.1 R7). Same host-free LM skeleton as the BA core (SURVEY.md
   * 6×6 Jacobian blocks per edge endpoint via vmapped ``jacfwd`` (pose
     graphs are thousands of nodes at most — autodiff is exact and the
     whole linearization is one fused batch),
-  * dense damped normal equations solved with Cholesky on the MXU — a
-    6N×6N dense solve is *faster* on TPU than sparse bookkeeping for every
-    realistic pose-graph size, and the gauge is fixed by an anchor prior on
-    node 0.
+  * dense damped normal equations solved with Cholesky — one 6N×6N
+    dense solve instead of sparse bookkeeping, which bounds N by memory
+    (ROADMAP 2f); the gauge is fixed by an anchor prior on node 0.
 
 Right-multiplicative local update: g ← exp(δ) ∘ g.
 """

@@ -1,9 +1,9 @@
 """Batched reprojection residuals.
 
 Capability parity: "reprojection-error evaluation" (BASELINE.json:5,
-SURVEY.md §2.1 R1). TPU design: one gather per observation for the camera row
-and the point row, then a fully fused vmapped projection — the whole residual
-evaluation is a single XLA fusion, HBM-bandwidth-bound on the two gathers.
+SURVEY.md §2.1 R1). One gather per observation for the camera row and the
+point row, then a vectorized projection — XLA fuses the whole residual
+evaluation, which is bound by the memory traffic of the two gathers.
 """
 
 from __future__ import annotations

@@ -30,32 +30,8 @@ ROBUST_KINDS = {"none": ROBUST_NONE, "huber": ROBUST_HUBER,
                 "cauchy": ROBUST_CAUCHY, "arctan": ROBUST_ARCTAN}
 
 
-def atan_pos(x):
-    """arctan(x) for x ≥ 0 from primitives Mosaic can lower (no ``atan``
-    in the Pallas TPU lowering set — found by scripts/tpu_smoke.py).
-
-    Cephes-style: reduce to |z| ≤ tan(π/8) via atan(x) = π/2 − atan(1/x)
-    (x > 1) then atan(x) = π/4 + atan((x−1)/(x+1)) (x > √2−1), and evaluate
-    the f32 minimax odd polynomial — ~1 ulp f32 accuracy, well below the
-    robust-cost tolerances."""
-    dt = x.dtype
-    inv = x > 1.0
-    xr = jnp.where(inv, 1.0 / jnp.maximum(x, jnp.asarray(1e-30, dt)), x)
-    big = xr > 0.4142135623730951
-    x1 = jnp.where(big, (xr - 1.0) / (xr + 1.0), xr)
-    z = x1 * x1
-    p = x1 + x1 * z * (-3.33329491539e-1 + z * (
-        1.99777106478e-1 + z * (-1.38776856032e-1 + z * 8.05374449538e-2)))
-    r = jnp.where(big, 0.7853981633974483 + p, p)
-    return jnp.where(inv, 1.5707963267948966 - r, r)
-
-
-def robust_rho(kind: int, s, scale, *, pallas: bool = False):
-    """ρ(s) for squared residual norms s. ``kind`` must be static.
-
-    ``pallas=True`` (static) selects the Mosaic-lowerable arctan
-    implementation — the SAME function runs in interpret mode and on the
-    chip, so CPU kernel tests exercise exactly what the hardware executes."""
+def robust_rho(kind: int, s, scale):
+    """ρ(s) for squared residual norms s. ``kind`` must be static."""
     a2 = scale * scale
     if kind == ROBUST_NONE:
         return s
@@ -65,8 +41,7 @@ def robust_rho(kind: int, s, scale, *, pallas: bool = False):
     if kind == ROBUST_CAUCHY:
         return a2 * jnp.log1p(s / a2)
     if kind == ROBUST_ARCTAN:
-        at = atan_pos if pallas else jnp.arctan
-        return a2 * at(s / a2)
+        return a2 * jnp.arctan(s / a2)
     raise ValueError(f"unknown robust kind {kind}")
 
 

@@ -2,9 +2,8 @@
 
 Capability parity: the reference pipeline's "upstream feature detect+match"
 (BASELINE.json:5, SURVEY.md §2.1 R5; that class of package wraps
-KLT/Harris-style detectors). TPU design: everything is convolution / window
-reductions over the full image — XLA lowers to MXU convs — with a fixed
-top-K so shapes stay static for jit.
+KLT/Harris-style detectors). Everything is convolution / window reductions
+over the full image, with a fixed top-K so shapes stay static for jit.
 """
 
 from __future__ import annotations

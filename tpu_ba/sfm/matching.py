@@ -1,7 +1,7 @@
 """Descriptor matching: mutual nearest neighbors + Lowe ratio test.
 
 Capability parity: "feature detect+match" (BASELINE.json:5, SURVEY.md §2.1
-R5). TPU design: the K×K similarity matrix is one matmul on the MXU; mutual-
+R5). The K×K similarity matrix is one matmul; mutual-
 NN and ratio tests are elementwise; output is fixed-size (K matches with a
 validity mask) so downstream stays shape-static.
 """
@@ -24,7 +24,7 @@ def match_descriptors(desc1, desc2, score1=None, score2=None,
     Lowe ratio (on 1−sim distances), similarity floor, and both keypoints
     real (score > 0 when scores given).
     """
-    sim = desc1 @ desc2.T  # (K1, K2) cosine similarity — MXU
+    sim = desc1 @ desc2.T  # (K1, K2) cosine similarity
     if score1 is not None:
         sim = jnp.where(score1[:, None] > 0, sim, -jnp.inf)
     if score2 is not None:

@@ -1,7 +1,7 @@
 """Perspective-n-Point camera registration with batched RANSAC.
 
 Capability parity: the reference pipeline's incremental camera registration
-(PnP — SURVEY.md §2.1 R6). TPU design: DLT minimal solves for a batch of
+(PnP — SURVEY.md §2.1 R6). DLT minimal solves for a batch of
 hypotheses under ``vmap``, then a short fixed-iteration Gauss-Newton pose
 refinement on the inlier set — all shape-static.
 

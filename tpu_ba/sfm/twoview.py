@@ -1,7 +1,7 @@
 """Two-view geometry: essential-matrix RANSAC and decomposition.
 
 Capability parity: the reference pipeline's two-view initialization
-(E/F matrix + RANSAC — SURVEY.md §2.1 R6). TPU design: RANSAC is a *batch*
+(E/F matrix + RANSAC — SURVEY.md §2.1 R6). RANSAC is a *batch*
 of hypotheses evaluated simultaneously under ``vmap`` (one (M,8)-sample
 8-point solve + one (M,K) Sampson-distance matrix), not a sequential loop —
 the classic trade of latency for throughput on a wide machine.

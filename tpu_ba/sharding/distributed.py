@@ -5,7 +5,7 @@ mandated by BASELINE.json:5,11 (the reference is single-process MATLAB —
 SURVEY.md §2.1 — so this layer is new capability, not a port).
 
 Design (SURVEY.md §2.2 N8, §3.2):
-  * 1-D mesh over all devices (ICI within a host, DCN across hosts when
+  * 1-D mesh over all devices (within a host, and across hosts when
     launched under ``jax.distributed.initialize``).
   * **Observations are sharded** along the mesh axis. Because observations
     are sorted by camera (tpu_ba.core.make_problem), equal-size observation
@@ -13,12 +13,13 @@ Design (SURVEY.md §2.2 N8, §3.2):
     device owns the observations of a contiguous run of cameras.
   * **Camera and point states are replicated.** Camera state is tiny
     (C×9); point state (P×3) and the V blocks (P×3×3) are tens of MB even
-    for Venice-1778 — well within HBM, and replication makes the Schur
-    reduction a pure psum pattern with no gather traffic.
+    for Venice-1778 — well within device memory, and replication makes the
+    Schur reduction a pure psum pattern with no gather traffic.
   * All communication is ``psum`` of segment-sum partials: 4 per
-    linearization (U, V, g_c, g_p + cost), 2 per CG iteration (the point-
-    and camera-side reductions of the S matvec), 1 each for RHS/diag/back-
-    substitution. Everything rides XLA collectives; there is no NCCL/MPI.
+    linearization (U, V, g_c, g_p + cost), then for ``schur_pcg`` 2 per CG
+    iteration (the point- and camera-side reductions of the S matvec) and
+    for ``schur_sparse`` one of the compact S blocks per λ-retry, 1 each
+    for RHS/diag/back-substitution. Everything rides XLA collectives.
 
 The solver body is literally ``tpu_ba.solver.lm.lm_loop`` with
 ``axis_name="obs"`` — single-device and distributed results are identical
@@ -54,17 +55,15 @@ def shard_problem(problem: BAProblem, mesh: Mesh) -> BAProblem:
     camera/point state replicated."""
     n_dev = mesh.devices.size
     O = problem.obs_2d.shape[0]
-    # pad so every device's shard is also a multiple of 128 — the sharded
-    # assembly plans (build_sharded_plans) need tileable local shards
     q = n_dev * 128
     O_pad = ((O + q - 1) // q) * q
     pad = O_pad - O
     if pad:
         # index padding repeats the LAST index (edge mode), preserving the
-        # global camera-sorted key order the per-device segsum plans
-        # require (zero padding would place key 0 after the largest key
-        # whenever the real length is not shard-aligned); mask=False keeps
-        # the rows inert
+        # global camera-sorted key order the sorted segment sums rely on
+        # (zero padding would place key 0 after the largest key whenever
+        # the real length is not shard-aligned); mask=False keeps the rows
+        # inert
         problem = dataclasses.replace(
             problem,
             obs_2d=jnp.pad(problem.obs_2d, ((0, pad), (0, 0))),
@@ -85,35 +84,6 @@ def shard_problem(problem: BAProblem, mesh: Mesh) -> BAProblem:
     )
 
 
-def _segsum_plan_specs(plan):
-    """PartitionSpec pytree for a stacked SegsumPlan: program arrays carry
-    the leading device axis."""
-    import dataclasses as _dc
-
-    from tpu_ba.kernels.segsum import SegsumPlan
-
-    kw = {f.name: getattr(plan, f.name)
-          for f in _dc.fields(SegsumPlan)
-          if f.name in ("n_obs", "n_out", "tile", "chunk", "n_chunks",
-                        "grid")}
-    return SegsumPlan(prog_chunk=P(AXIS), prog_tile=P(AXIS),
-                      prog_first=P(AXIS), **kw)
-
-
-def _assemblyplans_specs(plans):
-    """PartitionSpec pytree for stacked AssemblyPlans
-    (build_sharded_plans): every data leaf is sharded on its leading
-    device axis; SegsumPlan meta rides in the treedef."""
-    from tpu_ba.solver.plans import AssemblyPlans
-
-    return AssemblyPlans(
-        perm_pt=P(AXIS), pt_sorted_keys=P(AXIS),
-        cam_plan=_segsum_plan_specs(plans.cam_plan),
-        pt_plan=_segsum_plan_specs(plans.pt_plan),
-        bucket_idx=(), bucket_perm=None, bucket_degrees=(),
-    )
-
-
 def _pairplan_specs(pairs):
     """PartitionSpec pytree for a PairPlan: the pair axis is sharded over
     the mesh (each device reduces its own pair shard — see
@@ -121,8 +91,6 @@ def _pairplan_specs(pairs):
     kw = {f.name: None for f in dataclasses.fields(pairs)}
     for name in ("pair_i", "pair_j", "pair_pt", "pair_key", "pair_seg"):
         kw[name] = P(AXIS)
-    if pairs.seg_plan is not None:          # stacked per-device schedule
-        kw["seg_plan"] = _segsum_plan_specs(pairs.seg_plan)
     if pairs.track is not None:
         # stacked per-device track layout (shard_stack_track_layout): the
         # tracked-point axis is sharded; band partials psum with the blocks
@@ -138,11 +106,9 @@ def _pairplan_specs(pairs):
                 "stack it with shard_stack_track_layout().")
         kw["track"] = TrackLayout(
             slot_idx=P(AXIS), slot_mask=P(AXIS), vperm=P(AXIS), keys=P(AXIS),
-            plan=(_segsum_plan_specs(tl.plan) if tl.plan is not None
-                  else None),
             dmax=tl.dmax, n_tracked=tl.n_tracked, pt_pad=tl.pt_pad,
             n_out=tl.n_out)
-    for name in ("seg_ci", "seg_cj", "diag_pos",
+    for name in ("seg_ci", "seg_cj", "diag_pos", "nondiag",
                  "heavy_obs", "heavy_cam", "heavy_seg", "heavy_pt_ids"):
         kw[name] = P()
     # meta fields must carry their real values (they live in the treedef)
@@ -155,19 +121,8 @@ def _pairplan_specs(pairs):
 
 @partial(jax.jit, static_argnums=(1, 2))
 def _solve_sharded_jit(problem: BAProblem, config: LMConfig, mesh: Mesh,
-                       init_state=None, pairs=None, plans=None) -> LMResult:
-    def body(cams, pts, obs, ci, pi, mask, init_state, pairs, plans):
-        if plans is not None:
-            from tpu_ba.solver.plans import unstack_plans
-
-            plans = unstack_plans(plans)
-        if pairs is not None and pairs.seg_plan is not None:
-            import dataclasses as _dc
-
-            from tpu_ba.kernels.segsum import unstack_plan
-
-            pairs = _dc.replace(pairs,
-                                seg_plan=unstack_plan(pairs.seg_plan))
+                       init_state=None, pairs=None) -> LMResult:
+    def body(cams, pts, obs, ci, pi, mask, init_state, pairs):
         if pairs is not None and pairs.track is not None:
             import dataclasses as _dc
 
@@ -179,21 +134,20 @@ def _solve_sharded_jit(problem: BAProblem, config: LMConfig, mesh: Mesh,
                        n_cameras=problem.cameras.shape[0],
                        n_points=problem.points.shape[0],
                        config=config, axis_name=AXIS,
-                       init_state=init_state, pairs=pairs, plans=plans)
+                       init_state=init_state, pairs=pairs)
 
     pair_specs = _pairplan_specs(pairs) if pairs is not None else None
-    plan_specs = _assemblyplans_specs(plans) if plans is not None else None
     fn = jax.shard_map(
         body,
         mesh=mesh,
         in_specs=(P(), P(), P(AXIS), P(AXIS), P(AXIS), P(AXIS), P(),
-                  pair_specs, plan_specs),
+                  pair_specs),
         out_specs=P(),
         check_vma=False,
     )
     return fn(problem.cameras, problem.points, problem.obs_2d,
               problem.cam_idx, problem.pt_idx, problem.mask, init_state,
-              pairs, plans)
+              pairs)
 
 
 def solve_sharded(problem: BAProblem, config: LMConfig | None = None,
@@ -205,102 +159,51 @@ def solve_sharded(problem: BAProblem, config: LMConfig | None = None,
     ``resume_from`` restores the full trust-region state (params, λ, ν,
     iteration) from a checkpoint, exactly like the single-device
     ``solve(..., resume_from=...)`` — distributed runs are the main consumer
-    of elastic recovery (ADVICE.md round 2: --resume was silently ignored
-    under --sharded)."""
+    of elastic recovery."""
+    from tpu_ba.solver.lm import _memoized, _plan_key, check_linear_solver
+
     if config is None:
         config = LMConfig()
+    check_linear_solver(config.linear_solver)
     if config.linear_solver == "dense":
         raise ValueError("dense solver has no sharded path; use schur_pcg")
-    if config.linear_solver.startswith("schur_dense"):
+    if config.linear_solver == "schur_dense":
         raise ValueError("schur_dense has no sharded path; use schur_sparse")
     if mesh is None:
         mesh = make_mesh()
     pairs = None
-    if config.linear_solver.startswith("schur_sparse"):
+    if config.linear_solver == "schur_sparse":
         # the production compact/banded solver, keyframe-partitioned
         # (BASELINE.json:11): pairs sharded over the mesh, ONE psum of the
         # compact blocks per λ-retry, communication-free CG
-        from tpu_ba.solver.lm import _memoized, _plan_key
         from tpu_ba.solver.pairs import build_pair_plan
 
         n_dev = mesh.devices.size
         def _build_sharded_pairs():
-            # tracks=True (VERDICT r4 next #6): the global track layout is
-            # split into per-device point chunks (shard_stack_track_layout)
-            # whose band partials psum with the pair blocks — the track
-            # kernel now runs sharded exactly as single-device. slots=False
-            # remains the one documented exclusion: the degree-bucketed
-            # slot tuples would need a per-device re-bucketing pass that
-            # has no sharded consumer yet (community plans are slot-free
-            # anyway, and ring plans route most points through tracks).
+            # tracks=True: the global track layout is split into per-device
+            # point chunks (shard_stack_track_layout) whose band partials
+            # psum with the pair blocks. slots=False: the degree-bucketed
+            # slot tuples would need a per-device re-bucketing pass
+            # (community plans are slot-free anyway, and ring plans route
+            # most points through tracks).
             pp = build_pair_plan(
                 problem.cam_idx, problem.pt_idx, problem.n_obs,
                 problem.cameras.shape[0], problem.points.shape[0],
                 symmetric=True, tracks=True, slots=False,
                 pad_multiple=max(2048, n_dev))
             if pp.track is not None:
-                import dataclasses as _dc
-
                 from tpu_ba.solver.tracks import shard_stack_track_layout
 
-                pp = _dc.replace(pp, track=shard_stack_track_layout(
-                    pp.track, n_dev,
-                    with_kernel_plans=config.linear_solver.endswith(
-                        "_pallas")))
-            if (config.linear_solver.endswith("_pallas")
-                    and pp.n_pairs % n_dev == 0):
-                # per-device block-build schedules: each device's pair
-                # shard is a contiguous slice of the globally seg-sorted
-                # pair arrays, so its keys are sorted and its plan covers
-                # the global k_pad segment space — the fused pair-blocks
-                # kernel then runs sharded exactly as single-device
-                # (VERDICT r3 missing #5, completing blk_build parity)
-                import dataclasses as _dc
-
-                from tpu_ba.kernels.segsum import (build_segsum_plan,
-                                                   pad_stack_segsum_plans)
-
-                seg = np.asarray(pp.pair_seg)
-                np_loc = pp.n_pairs // n_dev
-                tile = next((t for t in (2048, 1024, 512, 256, 128)
-                             if np_loc % t == 0), None)
-                if tile is not None:
-                    seg_plans = [
-                        build_segsum_plan(seg[d * np_loc:(d + 1) * np_loc],
-                                          pp.k_pad, tile=tile, chunk=512)
-                        for d in range(n_dev)]
-                    pp = _dc.replace(
-                        pp, seg_plan=pad_stack_segsum_plans(seg_plans))
+                pp = dataclasses.replace(pp, track=shard_stack_track_layout(
+                    pp.track, n_dev))
             return pp
 
-        pairs = _memoized(
-            _plan_key(problem, f"pairs-sharded-{n_dev}-"
-                               f"{config.linear_solver}"),
-            _build_sharded_pairs)
+        pairs = _memoized(_plan_key(problem, f"pairs-sharded-{n_dev}"),
+                          _build_sharded_pairs)
         if pairs.n_pairs % n_dev:
             raise ValueError(
                 f"pair count {pairs.n_pairs} not divisible by mesh size "
                 f"{n_dev}; use a power-of-two mesh or adjust pad_multiple")
-    plans = None
-    if config.linear_solver.endswith("_pallas"):
-        # per-device fused-assembly schedules: the SAME Pallas
-        # linearize+assemble and segment-sum kernels as single-device run
-        # on each observation shard (VERDICT r3 missing #5). Built over the
-        # PADDED/SHARDED observation arrays, so shard the problem first.
-        from tpu_ba.solver.lm import _memoized, _plan_key
-        from tpu_ba.solver.plans import build_sharded_plans
-
-        O = problem.obs_2d.shape[0]
-        if O % (mesh.devices.size * 128) != 0:
-            # shard_problem pads to n_dev·128-aligned shards — required by
-            # the per-device assembly plans, not just by even sharding
-            problem = shard_problem(problem, mesh)
-        plans = _memoized(
-            _plan_key(problem, f"assembly-sharded-{mesh.devices.size}"),
-            lambda: build_sharded_plans(
-                problem.cam_idx, problem.pt_idx,
-                problem.cameras.shape[0], problem.points.shape[0],
-                mesh.devices.size))
     init_state = None
     if resume_from:
         from tpu_ba.checkpoint.state import load_checkpoint
@@ -320,5 +223,4 @@ def solve_sharded(problem: BAProblem, config: LMConfig | None = None,
     O = problem.obs_2d.shape[0]
     if O % (mesh.devices.size * 128) != 0:
         problem = shard_problem(problem, mesh)
-    return _solve_sharded_jit(problem, config, mesh, init_state, pairs,
-                              plans)
+    return _solve_sharded_jit(problem, config, mesh, init_state, pairs)

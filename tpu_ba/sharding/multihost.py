@@ -7,8 +7,8 @@ Process model: one Python process per host, launched with identical code;
 ``init_distributed`` wires them into one JAX runtime, after which
 ``jax.devices()`` spans all hosts and the single-host ``solve_sharded``
 (tpu_ba/sharding/distributed.py) works unchanged — its mesh covers the
-global device list and XLA routes the psums over ICI within a slice and DCN
-across hosts. There is no NCCL/MPI/Gloo anywhere.
+global device list and XLA's collectives carry the psums within and across
+hosts.
 
 Data model: every host builds (or loads) the same problem deterministically
 (same file / same seed), then ``shard_problem`` gives each host's devices

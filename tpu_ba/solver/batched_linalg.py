@@ -1,11 +1,10 @@
 """Batched small-matrix linear algebra in pure jnp ops.
 
-``jnp.linalg.inv`` on TPU lowers batched small matrices to pivoted LU —
-a serialized, poorly-tiled path. BA only ever inverts *damped SPD* blocks
-(3×3 point blocks, 9×9 camera preconditioner blocks), so an unrolled
-Gauss-Jordan without pivoting is exact enough and compiles to dense
-vectorized VPU ops over the batch (diagonal dominance from λ·diag damping
-keeps pivots healthy; a floor guards exact zeros).
+BA only ever inverts *damped SPD* blocks (3×3 point blocks, 9×9 camera
+preconditioner blocks), so an unrolled Gauss-Jordan without pivoting is
+exact enough and compiles to dense elementwise ops over the batch instead
+of a batched pivoted LU (diagonal dominance from λ·diag damping keeps
+pivots healthy; a floor guards exact zeros).
 """
 
 from __future__ import annotations

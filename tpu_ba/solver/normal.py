@@ -1,8 +1,8 @@
 """Block-sparse Gauss-Newton system assembly.
 
 Capability parity: "sparse JᵀJ assembly" of the reference's normal-equation
-step (BASELINE.json:5, SURVEY.md §2.1 R4) — re-designed for the TPU memory
-model. Instead of a global sparse matrix, the system is kept in *block* form:
+step (BASELINE.json:5, SURVEY.md §2.1 R4). Instead of a global sparse
+matrix, the system is kept in *block* form:
 
     H = [ U   W ]     U: (C, dc, dc) camera diagonal blocks
         [ Wᵀ  V ]     V: (P, 3, 3)  point diagonal blocks
@@ -11,10 +11,9 @@ model. Instead of a global sparse matrix, the system is kept in *block* form:
                           so W's sparsity pattern IS the observation list)
 
 U, V and the gradient are segment-sums over the observation axis — batched
-outer products on the VPU/MXU followed by a segmented reduction. Observations
-arrive sorted by camera (tpu_ba.core.make_problem), so the camera-indexed
-segment sums reduce over contiguous runs (``indices_are_sorted=True``), which
-is also the layout the Pallas assembly kernel exploits (tpu_ba/kernels/).
+outer products followed by a segmented reduction. Observations arrive sorted
+by camera (tpu_ba.core.make_problem), so the camera-indexed segment sums
+reduce over contiguous runs (``indices_are_sorted=True``).
 
 Robust IRLS weighting (√ρ′ scaling of r and J) happens here, once per
 linearization, following the standard first-order robustified Gauss-Newton.
@@ -33,10 +32,9 @@ from tpu_ba.residuals.robust import robust_weight
 class BlockSystem(NamedTuple):
     """The assembled (robust-weighted) Gauss-Newton system in block form.
 
-    Observation/point-indexed arrays are **lane-major** (batch axis last):
-    on TPU the trailing two dims are tiled T(8,128), so AoS layouts like
-    (O, dc, 3) pad their tiny minor dims to (8·k, 128) — a 14× physical
-    blowup at BAL scale. Lane-major keeps the big axis on lanes.
+    Observation/point-indexed arrays are **lane-major** (batch axis last), so
+    the per-block algebra is row arithmetic over long contiguous rows and no
+    layout pads the tiny (dc, 3) block dims.
     """
 
     U: jax.Array        # (C, dc, dc) camera diagonal blocks of JᵀJ
@@ -73,7 +71,7 @@ def apply_irls_weights(r, Jc, Jp, robust_kind: int, robust_scale: float, mask=No
 
 def assemble(r, Jc, Jp, cam_idx, pt_idx, n_cameras: int, n_points: int,
              robust_kind: int = 0, robust_scale: float = 1.0, mask=None,
-             axis_name: str | None = None, plans=None) -> BlockSystem:
+             axis_name: str | None = None) -> BlockSystem:
     """Assemble the block system from per-observation residuals/Jacobians.
 
     All inputs already have masked rows zeroed (see jacobian_blocks_*); the
@@ -87,7 +85,7 @@ def assemble(r, Jc, Jp, cam_idx, pt_idx, n_cameras: int, n_points: int,
     """
     r, Jc, Jp, cost = apply_irls_weights(r, Jc, Jp, robust_kind, robust_scale, mask)
 
-    # per-observation outer products — lane-parallel VPU row products
+    # per-observation outer products — row products over the batch axis
     O = r.shape[-1]
     dc = Jc.shape[1]
     UtU = jnp.einsum("smo,sno->mno", Jc, Jc).reshape(dc * dc, O)
@@ -96,16 +94,14 @@ def assemble(r, Jc, Jp, cam_idx, pt_idx, n_cameras: int, n_points: int,
     gco = jnp.einsum("smo,so->mo", Jc, r)      # (dc, O)
     gpo = jnp.einsum("smo,so->mo", Jp, r)      # (3, O)
 
-    from tpu_ba.solver.plans import cam_segsum_t, pt_segsum_t
-
-    use_plans = plans if axis_name is None else None
     # one packed reduction per side (camera: dc²+dc rows, point: 12)
-    cam_packed = cam_segsum_t(
-        use_plans, jnp.concatenate([UtU, gco], axis=0), cam_idx, n_cameras)
+    cam_packed = jax.ops.segment_sum(
+        jnp.concatenate([UtU, gco], axis=0).T, cam_idx, n_cameras,
+        indices_are_sorted=True).T
     U = cam_packed[: dc * dc].reshape(dc, dc, n_cameras).transpose(2, 0, 1)
     gc = cam_packed[dc * dc:].T
-    pt_packed = pt_segsum_t(
-        use_plans, jnp.concatenate([VtV, gpo], axis=0), pt_idx, n_points)
+    pt_packed = jax.ops.segment_sum(
+        jnp.concatenate([VtV, gpo], axis=0).T, pt_idx, n_points).T
     V = pt_packed[:9]
     gp = pt_packed[9:]
 

@@ -2,21 +2,17 @@
 
 Capability parity: the reference's Schur-complement camera solve
 (BASELINE.json:5 "Schur-complement elimination of points"; SURVEY.md §2.1 R4)
-— here in the *explicit* form S = U_λ − W V_λ⁻¹ Wᵀ materialized as a dense
-(6C × 6C) matrix, the TPU-idiomatic choice for BAL-class problems
-(C ≤ a few thousand ⇒ S is a few hundred MB and its matvec is a single
-bandwidth-bound MXU matmul).
+— here in the *explicit* form S = U_λ − W V_λ⁻¹ Wᵀ, for BAL-class problems
+(C ≤ a few thousand cameras).
 
-Why explicit (measured on the target chip, scripts/gather_microbench.py):
-XLA gathers/scatters run at 4–8 GB/s on this TPU while dense matmul streams
-at ~100 GB/s — so the matrix-free matvec (two O-sized gathers + two
-segment-sums *per CG iteration*) loses to building S once per λ-retry and
-running CG on it. All λ-dependent work happens in *pair space* with zero
+Why explicit: the matrix-free matvec (tpu_ba/solver/schur.py) does two
+O-sized gathers and two segment-sums *per CG iteration*; building S once per
+λ-retry turns every CG iteration into a pass over the covisible camera
+blocks only. All λ-dependent work happens in *pair space* with zero
 gathers: the static plan enumerates, for every point p and every ordered
 observation pair (i, j) of p, the contribution W_i V_λ,p⁻¹ W_jᵀ to camera
 block (cam_i, cam_j) of S. The 3×3 point-block inverses are *recomputed per
-pair* (≈60 FLOPs each) instead of gathered per CG iteration — trading cheap
-VPU FLOPs for the gathers TPUs hate.
+pair* (≈60 FLOPs each) instead of gathered per λ-retry.
 
 Per linearization (λ-free, once): gather W and V blocks into pair order.
 Per λ-retry: damp + invert 3×3s in pair space → 6×6 pair products →
@@ -50,9 +46,7 @@ def _round_up(x: int, m: int) -> int:
     data_fields=["pair_i", "pair_j", "pair_pt", "pair_key",
                  "pair_seg", "seg_ci", "seg_cj", "diag_pos",
                  "heavy_obs", "heavy_cam", "heavy_seg", "heavy_pt_ids",
-                 "seg_plan", "ci_plan",
-                 "seg_perm_cj", "cj_keys", "nondiag", "cj_plan", "track",
-                 "slot"],
+                 "nondiag", "track", "slot"],
     meta_fields=["n_pairs", "n_cameras", "max_degree",
                  "n_segments", "k_pad", "n_heavy_obs", "n_heavy_pts",
                  "symmetric", "banded", "band_offsets", "c_pad", "k_band"],
@@ -69,9 +63,7 @@ class PairPlan:
     each pair to its compact segment 0..K-1 (padding → k_pad−1, zeroed after
     the reduction), ``seg_ci``/``seg_cj`` give each segment's camera pair
     (padding segments carry ci == C, a trash row for the matvec reduction),
-    and ``diag_pos`` locates camera c's (c, c) block. ``seg_plan``/``ci_plan``
-    are the static Pallas segment-sum schedules for the pair→segment and
-    segment→camera reductions (None ⇒ jnp fallback, the CPU/test path).
+    and ``diag_pos`` locates camera c's (c, c) block.
     """
 
     pair_i: jax.Array    # (Np,) int32 — observation index of the row side
@@ -97,16 +89,11 @@ class PairPlan:
     k_pad: int           # padded segment count (multiple of the matvec tile)
     n_heavy_obs: int     # true heavy observation count (0 ⇒ no hybrid term)
     n_heavy_pts: int     # number of heavy points
-    seg_plan: object = None   # SegsumPlan for pairs → segments (or None)
-    ci_plan: object = None    # SegsumPlan for segments → cameras (or None)
     # symmetric storage (S = Sᵀ): only ci ≤ cj blocks are enumerated — half
     # the pair data and per-λ build work; the matvec adds a transposed pass
-    # reduced by COLUMN camera (segments permuted into cj-sorted order)
+    # reduced by COLUMN camera
     symmetric: bool = False
-    seg_perm_cj: jax.Array | None = None  # (k_pad,) permutation: cj-sorted
-    cj_keys: jax.Array | None = None      # (k_pad,) seg_cj[perm]; C on padding
     nondiag: jax.Array | None = None      # (k_pad,) 1.0 off-diag, 0.0 diag
-    cj_plan: object = None                # SegsumPlan for the cj-sorted pass
     # banded layout (symmetric only): the first len(band_offsets)·c_pad
     # segments are a DENSE (offset, ci) grid — segment o·c_pad + c holds
     # block T_{c, c+band_offsets[o]} (zero when absent) — so the CG matvec
@@ -120,15 +107,15 @@ class PairPlan:
     k_band: int = 0            # len(band_offsets) * c_pad
     # track-major extension (tpu_ba/solver/tracks.py): points with
     # consecutive camera tracks are NOT pair-enumerated — their band
-    # contributions come from the gather-free track kernel; only the
+    # contributions come from the gather-free track path; only the
     # leftover (wraparound / irregular) points go through the pair gather
     track: object = None       # TrackLayout | None
     # slot-major extension (tpu_ba/solver/slots.py): generalizes the track
     # split to ARBITRARY short tracks (span ≤ 16, any gaps) — the dominant
     # structure of windowed problems with visibility dropouts (the Venice
-    # stand-in), where the quadratic pair gather was 474 ms/linearization
-    # (scripts/trace_venice-1778.json). COMPOSES with ``track``: consecutive
-    # points keep the cheaper track kernel, slots take the rest of the
+    # stand-in), where the quadratic pair gather dominated the linearization
+    # on the Venice stand-in). COMPOSES with ``track``: consecutive
+    # points keep the cheaper track path, slots take the rest of the
     # eligible points, legacy pairs the remainder.
     slot: object = None        # SlotLayout | None
 
@@ -136,7 +123,6 @@ class PairPlan:
 def build_pair_plan(cam_idx, pt_idx, n_obs: int, n_cameras: int, n_points: int,
                     *, max_degree: int = 64,
                     pad_multiple: int = 2048,
-                    with_kernel_plans: bool = False,
                     symmetric: bool = False,
                     banded: bool = True,
                     tracks: bool | None = None,
@@ -151,21 +137,14 @@ def build_pair_plan(cam_idx, pt_idx, n_obs: int, n_cameras: int, n_points: int,
     ``symmetric`` enumerates only the ci ≤ cj half of each pair (S = Sᵀ) —
     half the pair data and per-λ build FLOPs; the matvec then applies the
     transposed blocks in a second cj-keyed reduction pass. At Venice-1778
-    scale this is the difference between the packed pair gather fitting in
-    HBM (4.6 GB) or not (9.1 GB).
+    scale this halves the packed pair gather (9.1 GB → 4.6 GB).
 
     ``banded`` (symmetric only): lay the compact segments out as a dense
     (offset, ci) band grid for every camera offset cj−ci that is populated
     across ≥ C/8 cameras. Trajectory-style problems (the Ladybug/Venice
     ring stand-ins; any RCM-ordered scene) put ~99.9% of pairs in a few
     offsets, so the CG matvec over the band needs NO gathers — static rolls
-    and FMAs only, at HBM stream rate instead of the 4–8 GB/s gather rate
-    (VERDICT.md round 2, next #1: the two (dc, k_pad) gathers per matvec ×
-    ~92 CG iterations were the measured bandwidth killer).
-
-    ``with_kernel_plans`` additionally builds the static Pallas segment-sum
-    schedules for the compact block-sparse path (TPU only — the jnp
-    fallback runs when they are None)."""
+    and FMAs only, instead of two (dc, k_pad) gathers per CG iteration."""
     ci = np.asarray(cam_idx)[:n_obs].astype(np.int64)
     pi = np.asarray(pt_idx)[:n_obs].astype(np.int64)
 
@@ -183,7 +162,7 @@ def build_pair_plan(cam_idx, pt_idx, n_obs: int, n_cameras: int, n_points: int,
         tracks = bool(symmetric and banded)
     # explicit slots=True engages regardless of size (tests/small scenes);
     # the auto default applies a minimum-coverage threshold so tiny
-    # problems don't pay extra kernel compiles for nothing
+    # problems don't pay extra compiles for nothing
     slot_min = 0 if slots is True else 4096
     if slots is None:
         # tracks=False is the established "pure pair enumeration" switch
@@ -212,7 +191,7 @@ def build_pair_plan(cam_idx, pt_idx, n_obs: int, n_cameras: int, n_points: int,
 
     # slot-major split (tpu_ba/solver/slots.py): generalizes tracks to
     # arbitrary short tracks (gaps allowed). COMPOSES with tracks: the
-    # consecutive points keep the cheaper track kernel, slots take the
+    # consecutive points keep the cheaper track path, slots take the
     # remaining eligible points (the dominant share on windowed problems
     # with visibility dropouts — the Venice stand-in), legacy pairs the rest.
     slot_buckets = None
@@ -318,25 +297,23 @@ def build_pair_plan(cam_idx, pt_idx, n_obs: int, n_cameras: int, n_points: int,
                 return build_pair_plan(
                     cam_idx, pt_idx, n_obs, n_cameras, n_points,
                     max_degree=max_degree, pad_multiple=pad_multiple,
-                    with_kernel_plans=with_kernel_plans, symmetric=symmetric,
-                    banded=False, tracks=False, slots=False)
+                    symmetric=symmetric, banded=False, tracks=False,
+                    slots=False)
     band_list: tuple = ()
     c_pad = k_band = 0
     if use_banded:
         # band selection: include EVERY populated offset cj−ci when there are
         # ≤ 32 of them — real covisibility graphs (trajectory window + a few
         # loop-closure wraparound offsets) collapse to a handful, and a
-        # FULLY banded plan (zero off-band segments) is what lets the whole
-        # PCG loop run as one VMEM-resident Pallas kernel
-        # (tpu_ba/kernels/pcg_band.py — VERDICT.md round 3: the CG matvec is
-        # op-dispatch-bound, not bandwidth-bound). With > 32 offsets, keep
+        # FULLY banded plan (zero off-band segments) runs its whole CG
+        # matvec without gathers. With > 32 offsets, keep
         # the 32 heaviest by pair count; the rest go through the generic
         # off-band gather path.
         cip = ci[pair_i]
         cjp = ci[pair_j]
         off = cjp - cip                                   # ≥ 0 (ci ≤ cj)
         u_off, n_pairs_per_off = np.unique(off, return_counts=True)
-        # window offsets are mandatory band slots (the track/slot kernels
+        # window offsets are mandatory band slots (the track/slot paths
         # write them); protect them through the 32-offset cap
         protect = max(trk_dmax,
                       slot_span_max + 1 if slot_buckets is not None else 0)
@@ -434,44 +411,23 @@ def build_pair_plan(cam_idx, pt_idx, n_obs: int, n_cameras: int, n_points: int,
             np.zeros(n_cameras, bool)
         diag_pos = np.where(hit, diag_pos, k_pad - 1)
 
-    seg_plan = ci_plan = cj_plan = None
-    if with_kernel_plans:
-        from tpu_ba.kernels.segsum import build_segsum_plan
-
-        seg_plan = build_segsum_plan(pair_seg, k_pad, tile=pad_multiple)
-        if not use_banded:
-            ci_plan = build_segsum_plan(seg_ci, n_cameras + 1,
-                                        tile=pad_multiple)
-
-    seg_perm_cj = cj_keys = nondiag = None
+    nondiag = None
     if symmetric and not use_banded:
-        # transposed-pass schedule: segments permuted into cj-sorted order
-        # (padding segments → trash camera C, so sortedness holds)
-        cj_eff = np.where(seg_ci == n_cameras, n_cameras, seg_cj)
-        seg_perm_cj = np.argsort(cj_eff, kind="stable").astype(np.int64)
-        cj_keys = cj_eff[seg_perm_cj]
+        # transposed-pass mask: diagonal blocks are applied once
         nondiag = (seg_ci != seg_cj).astype(np.float32)
-        if with_kernel_plans:
-            from tpu_ba.kernels.segsum import build_segsum_plan
-
-            cj_plan = build_segsum_plan(cj_keys, n_cameras + 1,
-                                        tile=pad_multiple)
 
     track_layout = None
     if trk_mask is not None:
         from tpu_ba.solver.tracks import build_track_layout
 
         track_layout = build_track_layout(
-            cam_idx, pt_idx, n_obs, n_cameras, n_points, c_pad,
-            with_kernel_plans=with_kernel_plans)
+            cam_idx, pt_idx, n_obs, n_cameras, n_points, c_pad)
 
     slot_layout = None
     if slot_buckets is not None and use_banded:
         from tpu_ba.solver.slots import finalize_slot_layout
 
-        slot_layout = finalize_slot_layout(
-            slot_buckets, band_list, c_pad,
-            with_kernel_plans=with_kernel_plans)
+        slot_layout = finalize_slot_layout(slot_buckets, band_list, c_pad)
 
     return PairPlan(
         track=track_layout,
@@ -495,15 +451,8 @@ def build_pair_plan(cam_idx, pt_idx, n_obs: int, n_cameras: int, n_points: int,
         k_pad=int(k_pad),
         n_heavy_obs=n_heavy_obs,
         n_heavy_pts=n_heavy_pts,
-        seg_plan=seg_plan,
-        ci_plan=ci_plan,
         symmetric=bool(symmetric),
-        seg_perm_cj=(jnp.asarray(seg_perm_cj.astype(np.int32))
-                     if seg_perm_cj is not None else None),
-        cj_keys=(jnp.asarray(cj_keys.astype(np.int32))
-                 if cj_keys is not None else None),
         nondiag=(jnp.asarray(nondiag) if nondiag is not None else None),
-        cj_plan=cj_plan,
         banded=use_banded,
         band_offsets=band_list,
         c_pad=int(c_pad),
@@ -532,10 +481,6 @@ class PairData(NamedTuple):
     # tracks (the Venice windowed-with-dropouts structure)
     slot_W: tuple | None = None
     slot_V: tuple | None = None
-    # undamped lane-major camera blocks (dc², c_pad), packed ONCE per
-    # linearization for the fold-damp VMEM PCG prologue (λ-free; the kernel
-    # damps + inverts the block diagonal in-VMEM per retry)
-    U_t: jax.Array | None = None
 
 
 def precompute_pair_data(B: BlockSystem, pairs: PairPlan,
@@ -543,7 +488,7 @@ def precompute_pair_data(B: BlockSystem, pairs: PairPlan,
     """λ-free per-linearization gathers into pair order.
 
     The BlockSystem is already lane-major ((3dc,O) / (9,P)), so these are
-    pure lane-axis gathers — no transposes, no tile-padding blowup.
+    column gathers along the batch axis — no transposes.
 
     ``W_override`` supplies globally-indexed W blocks when B.W is an
     observation shard (the sharded path all-gathers W once per
@@ -563,18 +508,11 @@ def precompute_pair_data(B: BlockSystem, pairs: PairPlan,
 
         slot_W, slot_V = gather_slot_data(W, B.V, pairs.slot)
         slot_W, slot_V = tuple(slot_W), tuple(slot_V)
-    U_t = None
-    if pairs.banded:
-        dc = B.U.shape[-1]
-        C = pairs.n_cameras
-        U_t = jnp.pad(B.U.transpose(1, 2, 0).reshape(dc * dc, C),
-                      ((0, 0), (0, pairs.c_pad - C)))
     if pairs.n_heavy_pts == 0:
         return PairData(packed, trk_W=trk_W, trk_V=trk_V,
-                        slot_W=slot_W, slot_V=slot_V, U_t=U_t)
+                        slot_W=slot_W, slot_V=slot_V)
     return PairData(packed, W[:, pairs.heavy_obs], B.V[:, pairs.heavy_pt_ids],
-                    trk_W=trk_W, trk_V=trk_V, slot_W=slot_W, slot_V=slot_V,
-                    U_t=U_t)
+                    trk_W=trk_W, trk_V=trk_V, slot_W=slot_W, slot_V=slot_V)
 
 
 def _heavy_operator(pair_data: PairData, lam, pairs: PairPlan, dc: int,
@@ -614,7 +552,7 @@ def _heavy_operator(pair_data: PairData, lam, pairs: PairPlan, dc: int,
 def _pair_products_t(packed_t, lam, dc: int, diag_floor, diag_ceil):
     """vals_t (dc², Np): per-pair blocks W_i V_λ⁻¹ W_jᵀ, all lane-major.
 
-    The 3×3 damped inverses are recomputed per pair — ~60 VPU FLOPs each —
+    The 3×3 damped inverses are recomputed per pair — ~60 FLOPs each —
     which keeps the λ-retry path 100% gather-free (SURVEY.md §7 hard part
     (a): static index maps, no dynamic addressing in the hot loop).
     """
@@ -639,27 +577,22 @@ def _pair_products_t(packed_t, lam, dc: int, diag_floor, diag_ceil):
     return vals                               # (dc², Np)
 
 
-def _reduce_pairs_t(vals_t, pair_key, n_cameras: int, seg_plan=None):
+def _reduce_pairs_t(vals_t, pair_key, n_cameras: int):
     """T_t (dc², C²): segment-sum of pair blocks by camera-pair key (sorted;
     the trailing trash segment C² collects padding). Stays lane-major."""
     C = n_cameras
-    if seg_plan is not None:
-        from tpu_ba.kernels.segsum import sorted_segment_sum_t
-
-        return sorted_segment_sum_t(vals_t, pair_key, C * C + 1,
-                                    plan=seg_plan)[:, : C * C]
     out = jax.ops.segment_sum(vals_t.T, pair_key, C * C + 1,
                               indices_are_sorted=True)
     return out.T[:, : C * C]
 
 
 def build_schur_t(B: BlockSystem, lam, pairs: PairPlan, pair_data,
-                  diag_floor: float, diag_ceil: float, seg_plan=None):
+                  diag_floor: float, diag_ceil: float):
     """The reduced camera system in T-major layout.
 
     Returns (Ul, T4, diag_S):
       Ul     (C, dc, dc) — damped camera diagonal blocks
-      T4     (dc, dc, C, C) — Σ_p W V_λ⁻¹ Wᵀ with block dims on *sublanes*
+      T4     (dc, dc, C, C) — Σ_p W V_λ⁻¹ Wᵀ with the block dims leading
       diag_S (C, dc, dc) — exact block diagonal of S = U_λ − T
     The matvec never materializes S: y = Ul·x − einsum("ijcd,dj->ci", T4, x).
     """
@@ -671,7 +604,7 @@ def build_schur_t(B: BlockSystem, lam, pairs: PairPlan, pair_data,
     Ul, _ = damp_blocks(B, lam, diag_floor, diag_ceil)
 
     vals_t = _pair_products_t(pair_data.packed, lam, dc, diag_floor, diag_ceil)
-    T_t = _reduce_pairs_t(vals_t, pairs.pair_key, C, seg_plan)  # (dc², C²)
+    T_t = _reduce_pairs_t(vals_t, pairs.pair_key, C)            # (dc², C²)
     T4 = T_t.reshape(dc, dc, C, C)
 
     idx = jnp.arange(C)
@@ -752,24 +685,11 @@ def _compact_blocks(B: BlockSystem, lam, pairs: PairPlan, pair_data,
     """blk (dc², k_pad): the K nonzero (dc×dc) blocks of T = W V_λ⁻¹ Wᵀ in
     compact covisibility-segment order (blk[dc·i+j, k] = T_{seg_ci[k],
     seg_cj[k]}[i, j]); columns ≥ K are exact zeros. The reduction runs over
-    *sorted compact* segment ids — K ≈ covisible pairs, not C² — which is
-    what makes it Pallas-one-hot friendly (dense chunks) and the reason this
-    path beats the dense-T4 build ~20× at BAL scale."""
+    *sorted compact* segment ids — K ≈ covisible pairs, not C²."""
     dc = B.U.shape[-1]
-    if pairs.seg_plan is not None:
-        # fused Pallas path: pair products never touch HBM (measured 65 ms →
-        # see scripts/pair_profile.py; the unfused round-1 path wrote + read
-        # ~1 GB of (dc², Np) products per λ-retry at ladybug-1723 scale)
-        from tpu_ba.kernels.pairblocks import fused_pair_blocks
-
-        blk = fused_pair_blocks(
-            pair_data.packed, pairs.pair_seg, lam, pairs.k_pad,
-            pairs.seg_plan, dc=dc, diag_floor=diag_floor, diag_ceil=diag_ceil)
-    else:
-        vals_t = _pair_products_t(pair_data.packed, lam, dc,
-                                  diag_floor, diag_ceil)
-        blk = jax.ops.segment_sum(vals_t.T, pairs.pair_seg, pairs.k_pad,
-                                  indices_are_sorted=True).T
+    vals_t = _pair_products_t(pair_data.packed, lam, dc, diag_floor, diag_ceil)
+    blk = jax.ops.segment_sum(vals_t.T, pairs.pair_seg, pairs.k_pad,
+                              indices_are_sorted=True).T
     # only the trash column k_pad−1 receives padding pairs (segment_sum
     # zero-initializes untouched segments) — zero it so diag_pos reads of
     # absent diagonals are exact zeros
@@ -782,16 +702,9 @@ def _compact_blocks(B: BlockSystem, lam, pairs: PairPlan, pair_data,
         from tpu_ba.solver import tracks as tracks_mod
 
         tl = pairs.track
-        if tl.plan is not None:
-            from tpu_ba.kernels.trackband import fused_track_blocks
-
-            tout = fused_track_blocks(
-                pair_data.trk_W, pair_data.trk_V, lam, tl, dc=dc,
-                diag_floor=diag_floor, diag_ceil=diag_ceil)
-        else:
-            tout = tracks_mod.track_blocks_jnp(
-                pair_data.trk_W, pair_data.trk_V, lam, tl, dc,
-                diag_floor, diag_ceil)
+        tout = tracks_mod.track_blocks_jnp(
+            pair_data.trk_W, pair_data.trk_V, lam, tl, dc,
+            diag_floor, diag_ceil)
         d2 = dc * dc
         cp = pairs.c_pad
         for g in range(tl.dmax):
@@ -800,21 +713,13 @@ def _compact_blocks(B: BlockSystem, lam, pairs: PairPlan, pair_data,
 
     if pairs.slot is not None:
         # slot-major band contributions (tpu_ba/solver/slots.py): level-1
-        # bucket kernels + level-2 fold emit the off-major band grid
+        # bucket reductions + level-2 fold emit the off-major band grid
         # directly — same layout as blk[:, :k_band]
-        sl = pairs.slot
-        if sl.l2_plan is not None:
-            from tpu_ba.kernels.slotband import slot_band_blocks
+        from tpu_ba.solver.slots import slot_blocks_jnp
 
-            sout = slot_band_blocks(
-                pair_data.slot_W, pair_data.slot_V, lam, sl, dc=dc,
-                diag_floor=diag_floor, diag_ceil=diag_ceil)
-        else:
-            from tpu_ba.solver.slots import slot_blocks_jnp
-
-            sout = slot_blocks_jnp(
-                pair_data.slot_W, pair_data.slot_V, lam, sl, dc,
-                diag_floor, diag_ceil)
+        sout = slot_blocks_jnp(
+            pair_data.slot_W, pair_data.slot_V, lam, pairs.slot, dc,
+            diag_floor, diag_ceil)
         blk = blk.at[:, :pairs.k_band].add(sout)
     return blk
 
@@ -824,11 +729,10 @@ def make_banded_matvec(blk, Ul, pairs: PairPlan, dc: int, heavy_term=None):
 
     The band region of ``blk`` is a dense (offset, ci) grid (see
     build_pair_plan), so applying T = Σ W V_λ⁻¹ Wᵀ is static rolls + FMAs —
-    the whole band streams from HBM at full rate once per matvec, replacing
-    the two (dc, k_pad) gathers + permute of the generic compact path
-    (measured 4–8 GB/s on this chip — tpu_ba/solver/pairs.py module doc).
-    Off-band leftover segments (ring wraparound / loop closures; ~0.1% of
-    pairs on trajectory problems) run the generic gather path on a tiny
+    the whole band streams once per matvec, replacing the two (dc, k_pad)
+    gathers of the generic compact path. Off-band leftover segments (ring
+    wraparound / loop closures; ~0.1% of pairs on trajectory problems) run
+    the generic gather path on a tiny
     slice. Verified ≡ the non-symmetric compact oracle in tests/test_pairs.py.
     """
     C = pairs.n_cameras
@@ -879,17 +783,17 @@ def make_banded_matvec(blk, Ul, pairs: PairPlan, dc: int, heavy_term=None):
 
 def solve_schur_sparse(B: BlockSystem, lam, pairs: PairPlan, pair_data=None, *,
                        cg_max_iters: int, cg_tol, cg_x0=None,
-                       diag_floor: float, diag_ceil: float, plans=None,
-                       axis_name=None, pcg_kernel: bool | None = None,
+                       diag_floor: float, diag_ceil: float, axis_name=None,
                        precond: str = "jacobi"):
     """Linear solve on the *block-sparse* explicit reduced camera system.
 
     Same contract as solve_schur_dense, but S's off-diagonal structure is
     kept as K compact covisibility blocks instead of a dense (dc,dc,C,C)
     tensor: the per-λ build reduces pairs into (dc², K) and the CG matvec is
-    gather → per-segment block·vector → segment-sum by row camera. For
-    sparse covisibility (Ladybug-class: K ≪ C²) this cuts both the per-λ
-    build and the per-CG-iteration HBM traffic by ~C²/K.
+    gather → per-segment block·vector → segment-sum by row camera (or, for
+    a banded plan, static rolls over the band grid). For sparse
+    covisibility (Ladybug-class: K ≪ C²) this cuts both the per-λ build and
+    the per-CG-iteration memory traffic by ~C²/K.
 
     Sharded (``axis_name`` set): pairs arrive as per-device shards (the
     plan's pair axis is partitioned over the mesh — tpu_ba/sharding/), each
@@ -897,7 +801,7 @@ def solve_schur_sparse(B: BlockSystem, lam, pairs: PairPlan, pair_data=None, *,
     ``psum`` of the (dc², k_pad) compact blocks per λ-retry replicates S.
     The CG loop then runs fully replicated with ZERO per-iteration
     communication — the scaling advantage over the matrix-free schur_pcg
-    path, which psums twice per CG iteration (VERDICT.md round 2, next #4)."""
+    path, which psums twice per CG iteration."""
     from tpu_ba.solver.pcg import pcg
 
     if pair_data is None:
@@ -908,28 +812,6 @@ def solve_schur_sparse(B: BlockSystem, lam, pairs: PairPlan, pair_data=None, *,
     blk = _compact_blocks(B, lam, pairs, pair_data, diag_floor, diag_ceil)
     if axis_name is not None:
         blk = jax.lax.psum(blk, axis_name)
-
-    want_kernel_ = (pcg_kernel if pcg_kernel is not None
-                    else pairs.seg_plan is not None)
-    # fold-damp fast path (VERDICT r4 weak #1): the VMEM PCG kernel receives
-    # the UNDAMPED λ-free U_t and computes damped Ul + block-Jacobi M⁻¹ in
-    # its prologue — the per-retry damp_inv + pcg_pack phases disappear
-    if (pairs.banded and want_kernel_ and precond == "jacobi"
-            and pairs.n_segments <= pairs.k_band and pairs.n_heavy_pts == 0
-            and B.U.dtype == jnp.float32 and pair_data.U_t is not None):
-        from tpu_ba.kernels.pcg_band import (VMEM_ADMIT_BYTES,
-                                             band_vmem_bytes, pcg_banded)
-
-        if band_vmem_bytes(pairs, dc) <= VMEM_ADMIT_BYTES:
-            _, Vl_pts = damp_blocks(B, lam, diag_floor, diag_ceil)
-            Vinv_pts = inv3x3_rows(Vl_pts)
-            b = schur_rhs(B, Vinv_pts, axis_name, plans)
-            dx_cam, cg_iters, ok = pcg_banded(
-                blk, None, None, b, pairs, max_iters=cg_max_iters,
-                tol=cg_tol, x0=cg_x0, U_t=pair_data.U_t, lam=lam,
-                diag_floor=diag_floor, diag_ceil=diag_ceil)
-            dx_pt = back_substitute(B, Vinv_pts, dx_cam, axis_name, plans)
-            return dx_cam, dx_pt, cg_iters, ok
 
     Ul, Vl_pts = damp_blocks(B, lam, diag_floor, diag_ceil)
 
@@ -945,8 +827,7 @@ def solve_schur_sparse(B: BlockSystem, lam, pairs: PairPlan, pair_data=None, *,
 
     # block-tridiagonal PCR preconditioner (tpu_ba/solver/tridiag.py):
     # exact inverse of the {0, 1}-offset part of S, factored ONCE per
-    # λ-retry in plain XLA ops; applied inside the PCG loop (kernel or jnp)
-    # as O(log C) batched block-matvecs. VERDICT r3 next #6.
+    # λ-retry; applied inside the PCG loop as O(log C) batched block-matvecs.
     pcr = None
     if (precond == "tridiag" and pairs.banded and pairs.n_heavy_pts == 0
             and len(pairs.band_offsets) > 1 and pairs.band_offsets[1] == 1):
@@ -956,36 +837,7 @@ def solve_schur_sparse(B: BlockSystem, lam, pairs: PairPlan, pair_data=None, *,
         pcr = pcr_factor(D_t, B_up)
 
     Vinv_pts = inv3x3_rows(Vl_pts)
-    b = schur_rhs(B, Vinv_pts, axis_name, plans)               # (C, dc)
-
-    # fully banded f32 plan within the VMEM budget ⇒ run the WHOLE PCG loop
-    # as one VMEM-resident Pallas kernel (tpu_ba/kernels/pcg_band.py): the
-    # measured CG bottleneck is per-op dispatch, not bandwidth (round-3
-    # phase profile). Gated to the _pallas solver variant — seg_plan built,
-    # or ``pcg_kernel=True`` passed explicitly (the SHARDED production
-    # path: after the blk psum above the band grid is fully replicated, so
-    # the kernel runs identically on every device with zero per-CG-
-    # iteration communication — VERDICT r3 missing #5; under sharding
-    # seg_plan is the per-device blk-build schedule, hence the explicit
-    # flag). The jnp path below stays the oracle/fallback (f64 goldens,
-    # hybrid heavy tracks, over-budget bands).
-    want_kernel = (pcg_kernel if pcg_kernel is not None
-                   else pairs.seg_plan is not None)
-    if (pairs.banded and want_kernel
-            and pairs.n_segments <= pairs.k_band
-            and pairs.n_heavy_pts == 0
-            and B.U.dtype == jnp.float32):
-        from tpu_ba.kernels.pcg_band import (VMEM_ADMIT_BYTES,
-                                             band_vmem_bytes, pcg_banded)
-
-        pcr_bytes = (2 * pcr[0].shape[0] * dc * dc * pairs.c_pad * 4
-                     if pcr is not None else 0)
-        if band_vmem_bytes(pairs, dc) + pcr_bytes <= VMEM_ADMIT_BYTES:
-            dx_cam, cg_iters, ok = pcg_banded(
-                blk, Ul, Minv, b, pairs,
-                max_iters=cg_max_iters, tol=cg_tol, x0=cg_x0, tridiag=pcr)
-            dx_pt = back_substitute(B, Vinv_pts, dx_cam, axis_name, plans)
-            return dx_cam, dx_pt, cg_iters, ok
+    b = schur_rhs(B, Vinv_pts, axis_name)                      # (C, dc)
 
     if pairs.banded:
         matvec = make_banded_matvec(blk, Ul, pairs, dc, heavy_term)
@@ -997,14 +849,8 @@ def solve_schur_sparse(B: BlockSystem, lam, pairs: PairPlan, pair_data=None, *,
                 sum(blk[dc * i + j] * xg[j] for j in range(dc))
                 for i in range(dc)
             ])                                                 # (dc, k_pad)
-            if pairs.ci_plan is not None:
-                from tpu_ba.kernels.segsum import sorted_segment_sum_t
-
-                t = sorted_segment_sum_t(z, pairs.seg_ci, C + 1,
-                                         plan=pairs.ci_plan)
-            else:
-                t = jax.ops.segment_sum(z.T, pairs.seg_ci, C + 1,
-                                        indices_are_sorted=True).T
+            t = jax.ops.segment_sum(z.T, pairs.seg_ci, C + 1,
+                                    indices_are_sorted=True).T
             y = y - t[:, :C].T
             if pairs.symmetric:
                 # transposed pass: y_cj −= T_{ci,cj}ᵀ x_ci for off-diag blocks
@@ -1014,14 +860,7 @@ def solve_schur_sparse(B: BlockSystem, lam, pairs: PairPlan, pair_data=None, *,
                     sum(blk[dc * j + i] * xg2[j] for j in range(dc))
                     for i in range(dc)
                 ]) * pairs.nondiag[None, :]
-                if pairs.cj_plan is not None:
-                    from tpu_ba.kernels.segsum import sorted_segment_sum_t
-
-                    t2 = sorted_segment_sum_t(z2[:, pairs.seg_perm_cj],
-                                              pairs.cj_keys, C + 1,
-                                              plan=pairs.cj_plan)
-                else:
-                    t2 = jax.ops.segment_sum(z2.T, pairs.seg_cj, C + 1).T
+                t2 = jax.ops.segment_sum(z2.T, pairs.seg_cj, C + 1).T
                 y = y - t2[:, :C].T
             if heavy_term is not None:
                 y = y - heavy_term(x)
@@ -1038,5 +877,5 @@ def solve_schur_sparse(B: BlockSystem, lam, pairs: PairPlan, pair_data=None, *,
 
     dx_cam, cg_iters, ok = pcg(matvec, b, precond,
                                max_iters=cg_max_iters, tol=cg_tol, x0=cg_x0)
-    dx_pt = back_substitute(B, Vinv_pts, dx_cam, axis_name, plans)
+    dx_pt = back_substitute(B, Vinv_pts, dx_cam, axis_name)
     return dx_cam, dx_pt, cg_iters, ok

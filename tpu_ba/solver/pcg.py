@@ -3,7 +3,7 @@
 Capability parity: replaces the reference's direct "backslash" solve with a
 distributed-friendly iterative solve (BASELINE.json:5 "preconditioned CG",
 SURVEY.md §2.2 N6). Host-free: one ``lax.while_loop`` whose body is a single
-S-matvec (the ICI/DCN psum per iteration under sharding — SURVEY.md §3.2a);
+S-matvec (plus its psums under sharding — SURVEY.md §3.2a);
 early exit on the relative-residual test keeps rejected-λ retries cheap.
 """
 
@@ -11,14 +11,6 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-
-# Accumulation dtype for the CG dot products (None = input dtype).
-# Measurement knob for the compensated-precision study (VERDICT r4 ask #8,
-# scripts/precision_probe.py): f64 accumulation is a strict UPPER BOUND on
-# what two-float (Dekker/Kahan) compensation could recover, so probing with
-# float64 on CPU bounds the achievable parity gain before any kernel work.
-# Production TPU runs keep None (f64 is unsupported on the chip).
-DOT_ACCUM_DTYPE = None
 
 
 def pcg(matvec, b, precond, *, max_iters: int, tol: float, x0=None):
@@ -36,9 +28,6 @@ def pcg(matvec, b, precond, *, max_iters: int, tol: float, x0=None):
         x0 = jnp.zeros_like(b)
 
     def dot(a, c):
-        if DOT_ACCUM_DTYPE is not None:
-            return jnp.sum(a.astype(DOT_ACCUM_DTYPE)
-                           * c.astype(DOT_ACCUM_DTYPE)).astype(b.dtype)
         return jnp.sum(a * c)
 
     r0 = b - matvec(x0)

@@ -1,20 +1,20 @@
 """Matrix-free Schur complement: eliminate points, solve cameras.
 
 Capability parity: "Schur-complement elimination of points" (BASELINE.json:5,
-SURVEY.md §2.1 R4). TPU design (SURVEY.md §3.2a): the reduced camera system
+SURVEY.md §2.1 R4). Design (SURVEY.md §3.2a): the reduced camera system
 
     S = U_λ − W V_λ⁻¹ Wᵀ,      b = −g_c + W V_λ⁻¹ g_p
 
 is never materialized. Its matvec is two gather→row-product→segment-sum
 sweeps over the observation axis. All per-observation/point block data is
 **lane-major** ((3dc, O) / (9, P) — batch axis on lanes; see
-tpu_ba/solver/normal.py for the tiling rationale), so the block algebra is
-pure lane-parallel VPU row arithmetic. Under ``shard_map`` the two
+tpu_ba/solver/normal.py), so the block algebra is pure row arithmetic over
+the batch axis. Under ``shard_map`` the two
 segment-sums become local partial sums followed by one ``psum`` each
 (tpu_ba/sharding/).
 
-This is the scalable/distributed path; the explicit dense-S path
-(tpu_ba/solver/pairs.py) is faster on single-chip BAL-class problems.
+The explicit reduced-system paths (tpu_ba/solver/pairs.py) build S once per
+λ-retry instead; this one never forms it.
 """
 
 from __future__ import annotations
@@ -90,26 +90,21 @@ def _reduce(x, axis_name):
     return x if axis_name is None else jax.lax.psum(x, axis_name)
 
 
-def _cam_sum_t(values_t, cam_idx, n, axis_name, plans):
-    from tpu_ba.solver.plans import cam_segsum_t
-
-    # under sharding ``plans`` (when provided) is the PER-DEVICE schedule
-    # from build_sharded_plans, already unstacked — the kernel reduces the
-    # local shard and the psum completes it (round 4; previously sharded
-    # callers always fell back to jnp segment_sum scatter-adds)
-    out = cam_segsum_t(plans, values_t, cam_idx, n)
+def _cam_sum_t(values_t, cam_idx, n, axis_name):
+    """Camera-keyed lane-major segment sum (D, O) → (D, C); observations are
+    camera-sorted (tpu_ba.core.make_problem), also within a shard."""
+    out = jax.ops.segment_sum(values_t.T, cam_idx, n,
+                              indices_are_sorted=True).T
     return _reduce(out, axis_name)
 
 
-def _pt_sum_t(values_t, pt_idx, n, axis_name, plans):
-    from tpu_ba.solver.plans import pt_segsum_t
-
-    out = pt_segsum_t(plans, values_t, pt_idx, n)
+def _pt_sum_t(values_t, pt_idx, n, axis_name):
+    """Point-keyed lane-major segment sum (D, O) → (D, P); unsorted keys."""
+    out = jax.ops.segment_sum(values_t.T, pt_idx, n).T
     return _reduce(out, axis_name)
 
 
-def w_vinv_wt_diag(W, Vinv, cam_idx, pt_idx, n_cameras: int, axis_name=None,
-                   plans=None):
+def w_vinv_wt_diag(W, Vinv, cam_idx, pt_idx, n_cameras: int, axis_name=None):
     """Σ_obs W_o V⁻¹[pt_o] W_oᵀ accumulated per camera → (C, dc, dc).
 
     This is the second term of diag(S); used for the block-Jacobi
@@ -127,27 +122,27 @@ def w_vinv_wt_diag(W, Vinv, cam_idx, pt_idx, n_cameras: int, axis_name=None,
         sum(WVi[3 * m + b] * W[3 * m2 + b] for b in range(3))
         for m in range(dc) for m2 in range(dc)
     ])
-    out = _cam_sum_t(WViWt, cam_idx, n_cameras, axis_name, plans)  # (dc², C)
+    out = _cam_sum_t(WViWt, cam_idx, n_cameras, axis_name)  # (dc², C)
     return out.reshape(dc, dc, n_cameras).transpose(2, 0, 1)
 
 
-def schur_rhs(B: BlockSystem, Vinv, axis_name=None, plans=None):
+def schur_rhs(B: BlockSystem, Vinv, axis_name=None):
     """b = −g_c + W V_λ⁻¹ g_p → (C, dc). Vinv (9,P) lane-major."""
     dc = B.W.shape[0] // 3
     t = _matmul_rows_33(Vinv, B.gp)                      # (3, P)
     tg = t[:, B.pt_idx]                                  # (3, O)
     Wt = _w_dot(B.W, tg, dc)                             # (dc, O)
     n_cameras = B.U.shape[0]
-    return -B.gc + _cam_sum_t(Wt, B.cam_idx, n_cameras, axis_name, plans).T
+    return -B.gc + _cam_sum_t(Wt, B.cam_idx, n_cameras, axis_name).T
 
 
-def make_schur_matvec(Ul, W, Vinv, cam_idx, pt_idx, n_points: int, axis_name=None,
-                      plans=None):
+def make_schur_matvec(Ul, W, Vinv, cam_idx, pt_idx, n_points: int,
+                      axis_name=None):
     """Returns x ↦ S·x for x of shape (C, dc), matrix-free.
 
     Under sharding: x, Ul, Vinv are replicated; W and the index maps are
     shard-local; the two observation segment-sums each psum (the per-CG-iter
-    ICI/DCN crossings of SURVEY.md §3.2a).
+    cross-device reductions of SURVEY.md §3.2a).
     """
     n_cameras = Ul.shape[0]
     dc = W.shape[0] // 3
@@ -156,29 +151,29 @@ def make_schur_matvec(Ul, W, Vinv, cam_idx, pt_idx, n_points: int, axis_name=Non
         y = jnp.einsum("cij,cj->ci", Ul, x)              # U_λ x (replicated)
         xg = x.T[:, cam_idx]                             # (dc, O)
         wtx = _wt_dot(W, xg, dc)                         # (3, O)
-        t = _pt_sum_t(wtx, pt_idx, n_points, axis_name, plans)   # (3, P)
+        t = _pt_sum_t(wtx, pt_idx, n_points, axis_name)          # (3, P)
         u = _matmul_rows_33(Vinv, t)                     # (3, P)
         ug = u[:, pt_idx]                                # (3, O)
         z = _w_dot(W, ug, dc)                            # (dc, O)
-        z = _cam_sum_t(z, cam_idx, n_cameras, axis_name, plans)  # (dc, C)
+        z = _cam_sum_t(z, cam_idx, n_cameras, axis_name)         # (dc, C)
         return y - z.T
 
     return matvec
 
 
-def back_substitute(B: BlockSystem, Vinv, dx_cam, axis_name=None, plans=None):
+def back_substitute(B: BlockSystem, Vinv, dx_cam, axis_name=None):
     """δ_p = V_λ⁻¹ (−g_p − Wᵀ δ_c) → (P, 3)."""
     dc = B.W.shape[0] // 3
     dxg = dx_cam.T[:, B.cam_idx]                         # (dc, O)
     wtd = _wt_dot(B.W, dxg, dc)                          # (3, O)
     n_points = B.V.shape[-1]
-    s = _pt_sum_t(wtd, B.pt_idx, n_points, axis_name, plans)     # (3, P)
+    s = _pt_sum_t(wtd, B.pt_idx, n_points, axis_name)            # (3, P)
     return _matmul_rows_33(Vinv, -B.gp - s).T
 
 
 def solve_schur_pcg(B: BlockSystem, lam, *, cg_max_iters: int, cg_tol,
                     cg_x0=None, diag_floor: float, diag_ceil: float,
-                    axis_name=None, plans=None):
+                    axis_name=None):
     """Full Schur+PCG linear solve.
 
     Returns (δ_cameras, δ_points, cg_iters, ok) — ``ok`` is the PCG
@@ -190,16 +185,16 @@ def solve_schur_pcg(B: BlockSystem, lam, *, cg_max_iters: int, cg_tol,
     n_cameras = Ul.shape[0]
     n_points = Vl.shape[-1]
 
-    b = schur_rhs(B, Vinv, axis_name, plans)
+    b = schur_rhs(B, Vinv, axis_name)
     matvec = make_schur_matvec(Ul, B.W, Vinv, B.cam_idx, B.pt_idx, n_points,
-                               axis_name, plans)
+                               axis_name)
 
     # exact block-Jacobi preconditioner: inv of diag(S); batched unrolled
-    # Gauss-Jordan (jnp.linalg.inv lowers to slow pivoted LU on TPU)
+    # Gauss-Jordan (tpu_ba/solver/batched_linalg.py)
     from tpu_ba.solver.batched_linalg import inv_spd_small
 
     diag_S = Ul - w_vinv_wt_diag(B.W, Vinv, B.cam_idx, B.pt_idx, n_cameras,
-                                 axis_name, plans)
+                                 axis_name)
     Minv = inv_spd_small(diag_S)
 
     def precond(r):
@@ -207,5 +202,5 @@ def solve_schur_pcg(B: BlockSystem, lam, *, cg_max_iters: int, cg_tol,
 
     dx_cam, cg_iters, ok = pcg(matvec, b, precond, max_iters=cg_max_iters,
                                tol=cg_tol, x0=cg_x0)
-    dx_pt = back_substitute(B, Vinv, dx_cam, axis_name, plans)
+    dx_pt = back_substitute(B, Vinv, dx_cam, axis_name)
     return dx_cam, dx_pt, cg_iters, ok

@@ -3,10 +3,8 @@
 The track-major path (tpu_ba/solver/tracks.py) removed the quadratic
 covisibility-pair gather for points whose cameras form a CONSECUTIVE run —
 but windowed problems with visibility dropouts (the Venice stand-in) leave
-~40% of observations on the legacy pair path, whose gather ran at 474 ms
-per linearization in the real program (scripts/trace_venice-1778.json,
-fusion.150/151: ~17M gather indices at the measured XLA index rate).
-VERDICT r4 next #2 asks for exactly this generalization.
+~40% of observations on the legacy pair path, whose quadratic gather
+(~17M indices per linearization on the Venice stand-in) dominated.
 
 Slot-major drops the consecutiveness requirement: any point whose
 (ascending) camera set spans ≤ SLOT_SPAN_CAP indices, has degree ≤
@@ -15,30 +13,29 @@ slot arrays
 
     W_b (27, d, P_b)   cam_b (d, P_b)   V_b (9, P_b)
 
-with ONE O-sized permutation gather per linearization. The per-λ kernel
-(tpu_ba/kernels/slotband.py) forms every pair product W_a V_λ⁻¹ W_cᵀ from
-SLICES — no per-pair indices exist anywhere — and reduces in two levels:
+with ONE O-sized permutation gather per linearization. The per-λ build
+(slot_blocks_jnp) forms every pair product W_a V_λ⁻¹ W_cᵀ from SLICES — no
+per-pair indices exist anywhere — and reduces in two levels:
 
-  level 1 (in-kernel): one-hot MXU reduction into a TILE-LOCAL grid
-      local = (cam_a − tile_base_row)·n_off_loc + (cam_c − cam_a),
-      one program per point tile — no work list, no read amplification.
+  level 1: a segment sum into a TILE-LOCAL grid
+      local = (cam_a − tile_base_row)·n_off_loc + (cam_c − cam_a).
       The grid width is (tile_row_spread + span)·n_off_loc, so each bucket
       picks the largest tile in TILE_OPTS that keeps width ≤ WIDTH_BUDGET;
       buckets too small/sparse to localize stay on the legacy pair path
       (their pair count is tiny by construction).
   level 2 (host-planned): the concatenated tile grids carry statically
       known global band keys off·c_pad + row; a host-sorted permutation +
-      the standard sorted one-hot segment-sum folds them into the SAME
-      (dc², k_band) band layout the pair/track paths produce, so the
-      banded CG matvec / VMEM PCG kernel are untouched.
+      a sorted segment sum folds them into the SAME (dc², k_band) band
+      layout the pair/track paths produce, so the banded CG matvec is
+      untouched.
 
-Tracks and slots COMPOSE: consecutive points keep the cheaper track kernel
-(chunk-128 one-hot), slots take the remaining eligible points, legacy pairs
-the rest. The jnp oracle is slot_blocks_jnp (tests/test_slots.py).
+Tracks and slots COMPOSE: consecutive points keep the cheaper track path,
+slots take the remaining eligible points, legacy pairs the rest
+(tests/test_slots.py).
 
 Capability parity: the reference's Schur-complement camera-system build
-(BASELINE.json:5 "block-sparse J^T J assembly ... Pallas kernels"); layout
-is new TPU-first design (reference mount empty — SURVEY.md §0).
+(BASELINE.json:5 "block-sparse J^T J assembly"); the layout is new design
+(reference mount empty — SURVEY.md §0).
 """
 
 from __future__ import annotations
@@ -56,8 +53,8 @@ WIDTH_BUDGET = 1280   # max level-1 local grid width (lanes)
 TILE_OPTS = (2048, 1024, 512)
 
 # degree-bucket upper edges: a point of degree d lands in the smallest
-# bucket ≥ d (extra slots masked). One Pallas kernel instance per accepted
-# bucket — few buckets keeps compile time bounded.
+# bucket ≥ d (extra slots masked). Each accepted bucket is traced into its
+# own set of ops — few buckets keeps compile time bounded.
 BUCKET_EDGES = (2, 3, 4, 5, 6, 8, 12, 16)
 
 
@@ -68,7 +65,7 @@ def _round_up(x: int, m: int) -> int:
 @partial(
     jax.tree_util.register_dataclass,
     data_fields=["slot_idx", "slot_cam", "slot_mask", "vperm", "tile_base",
-                 "l2_perm", "l2_keys", "l2_plan"],
+                 "l2_perm", "l2_keys"],
     meta_fields=["degrees", "tiles", "widths", "pt_pad", "n_off_loc",
                  "n_tracked", "l2_len", "n_out"],
 )
@@ -90,7 +87,6 @@ class SlotLayout:
                    into global-band-key-sorted order
       l2_keys      (L,) sorted global keys (off_idx·c_pad + row; trash =
                    n_out for dead local slots)
-      l2_plan      SegsumPlan over l2_keys (None ⇒ jnp fallback)
       n_out        k_band (+1 trash segment in the reduction)
     """
 
@@ -101,7 +97,6 @@ class SlotLayout:
     tile_base: tuple
     l2_perm: jax.Array
     l2_keys: jax.Array
-    l2_plan: object
     degrees: tuple
     tiles: tuple
     widths: tuple
@@ -257,8 +252,8 @@ def select_slot_buckets(cam_idx, pt_idx, n_obs: int, n_points: int, *,
     return out
 
 
-def finalize_slot_layout(b: SlotBuckets, band_offsets: tuple, c_pad: int, *,
-                         with_kernel_plans: bool = True) -> SlotLayout:
+def finalize_slot_layout(b: SlotBuckets, band_offsets: tuple,
+                         c_pad: int) -> SlotLayout:
     """Phase b: the level-2 fold schedule, once the band layout is known.
     build_pair_plan protects offsets 0..span_max through the 32-offset cap,
     so every slot offset has a band slot by construction."""
@@ -289,11 +284,6 @@ def finalize_slot_layout(b: SlotBuckets, band_offsets: tuple, c_pad: int, *,
         # the dropped trash segment
         l2_perm = np.concatenate([l2_perm, np.full(L_pad - L, L - 1)])
         l2_keys = np.concatenate([l2_keys, np.full(L_pad - L, n_out)])
-    l2_plan = None
-    if with_kernel_plans:
-        from tpu_ba.kernels.segsum import build_segsum_plan
-
-        l2_plan = build_segsum_plan(l2_keys, n_out + 1, tile=1024)
 
     return SlotLayout(
         slot_idx=tuple(jnp.asarray(s.astype(np.int32)) for s in b.sidx),
@@ -303,7 +293,6 @@ def finalize_slot_layout(b: SlotBuckets, band_offsets: tuple, c_pad: int, *,
         tile_base=tuple(jnp.asarray(t.astype(np.int32)) for t in b.tile_base),
         l2_perm=jnp.asarray(l2_perm.astype(np.int32)),
         l2_keys=jnp.asarray(l2_keys.astype(np.int32)),
-        l2_plan=l2_plan,
         degrees=tuple(b.degrees), tiles=tuple(b.tiles),
         widths=tuple(b.widths), pt_pad=tuple(b.pt_pad),
         n_off_loc=int(n_off_loc), n_tracked=int(b.n_tracked),
@@ -322,8 +311,8 @@ def gather_slot_data(W, V, layout: SlotLayout):
 
 def slot_blocks_jnp(Ws, Vs, lam, layout: SlotLayout, dc: int,
                     diag_floor: float, diag_ceil: float):
-    """jnp oracle/fallback for the fused slot kernel chain (level 1 + 2).
-    Returns (dc², n_out) band-grid contributions (off-major, like the pair
+    """Band blocks of the slot points (level 1 + 2 reductions). Returns
+    (dc², n_out) band-grid contributions (off-major, like the pair
     path's blk[:, :k_band])."""
     from tpu_ba.solver.schur import inv3x3_rows
 

@@ -1,18 +1,14 @@
 """Track-major layout: gather-free Schur band assembly for consecutive tracks.
 
-Round-3 device tracing (scripts/trace_solve.py) showed the λ-free pair
-gather — packing W into covisibility-pair order, ~470 MB of random access
-per linearization — was the single largest cost of the production solve
-(two ~18 ms fusions per linearization at ladybug-1723). The covisibility
+The λ-free pair gather packs W into covisibility-pair order: ~470 MB of
+random access per linearization at ladybug-1723. The covisibility
 pairs of a *consecutive* camera track are fully determined by the track's
 start camera and length: the pair (slot a, slot b) of a track starting at
 camera c0 contributes exactly the band block (offset b−a, row c0+a). So
 instead of enumerating pairs (quadratic) and gathering W per pair, lay W
 out TRACK-MAJOR once per linearization — one O-sized permutation gather
-into (27, dmax, Pt) slot order — and let the per-λ kernel
-(tpu_ba/kernels/trackband.py) produce every pair product from *slices*,
-reducing into band rows with the same one-hot MXU segment-sum machinery,
-keyed by start camera (sorted, so the work-list applies).
+into (27, dmax, Pt) slot order — and produce every per-λ pair product from
+*slices* (track_blocks_jnp), reducing into band rows keyed by start camera.
 
 Points whose tracks are not consecutive (loop-closure wraparound, repeated
 cameras, very long tracks) fall back to the legacy pair enumeration — for
@@ -20,9 +16,9 @@ trajectory-style BAL problems that is ≲1% of points, so the legacy packed
 gather shrinks from ~470 MB to a few MB.
 
 Capability parity: part of the reference's Schur-complement camera-system
-build (BASELINE.json:5 "block-sparse J^T J assembly ... Pallas kernels");
-the layout is new TPU-first design, not mirrored from the (MATLAB, empty
-mount — SURVEY.md §0) reference.
+build (BASELINE.json:5 "block-sparse J^T J assembly"); the layout is new
+design, not mirrored from the (MATLAB, empty mount — SURVEY.md §0)
+reference.
 """
 
 from __future__ import annotations
@@ -41,7 +37,7 @@ def _round_up(x: int, m: int) -> int:
 
 @partial(
     jax.tree_util.register_dataclass,
-    data_fields=["slot_idx", "slot_mask", "vperm", "keys", "plan"],
+    data_fields=["slot_idx", "slot_mask", "vperm", "keys"],
     meta_fields=["dmax", "n_tracked", "pt_pad", "n_out"],
 )
 @dataclasses.dataclass(frozen=True)
@@ -53,17 +49,14 @@ class TrackLayout:
     ``slot_mask[a, p]`` is 1.0 where a < track length (0.0 ⇒ the slot's W
     must be treated as zero); ``vperm[p]`` is the original point id (for the
     V gather); ``keys[p]`` is the start camera (sorted ascending; padding
-    rows carry n_cameras−1 with all-zero masks). ``plan`` is the one-hot
-    segment-sum work list over ``keys`` with a (dmax−1)-key margin per
-    chunk: slot pair (a, b) reduces by key+a, so a chunk must also see the
-    tiles holding keys up to dmax−1 below its range.
+    rows carry n_cameras−1 with all-zero masks); slot pair (a, b) reduces
+    by key+a.
     """
 
     slot_idx: jax.Array    # (dmax, Pt_pad) int32
     slot_mask: jax.Array   # (dmax, Pt_pad) float32
     vperm: jax.Array       # (Pt_pad,) int32
     keys: jax.Array        # (Pt_pad,) int32, sorted
-    plan: object           # SegsumPlan (margin-extended)
     dmax: int
     n_tracked: int
     pt_pad: int
@@ -110,7 +103,7 @@ def split_tracks(cam_idx, pt_idx, n_obs: int, n_points: int,
 
 def build_track_layout(cam_idx, pt_idx, n_obs: int, n_cameras: int,
                        n_points: int, c_pad: int, *, dmax_cap: int = 8,
-                       tile: int = 2048, with_kernel_plans: bool = True):
+                       tile: int = 2048):
     """Build the TrackLayout (or None if no point is tracked)."""
     tracked, order, starts, deg = split_tracks(
         cam_idx, pt_idx, n_obs, n_points, dmax_cap=dmax_cap)
@@ -143,85 +136,26 @@ def build_track_layout(cam_idx, pt_idx, n_obs: int, n_cameras: int,
     keys = np.concatenate([c0, np.full(pad, n_cameras - 1, np.int64)])
     vperm = np.concatenate([ptids, np.zeros(pad, np.int64)])
 
-    plan = None
-    if with_kernel_plans:
-        plan = _build_margin_plan(keys, c_pad, tile=tile, margin=dmax - 1)
-
     return TrackLayout(
         slot_idx=jnp.asarray(slot_idx.astype(np.int32)),
         slot_mask=jnp.asarray(slot_mask),
         vperm=jnp.asarray(vperm.astype(np.int32)),
         keys=jnp.asarray(keys.astype(np.int32)),
-        plan=plan,
         dmax=dmax, n_tracked=nt, pt_pad=pt_pad, n_out=int(c_pad),
     )
 
 
-def _build_margin_plan(keys: np.ndarray, n_out: int, *, tile: int,
-                       margin: int, chunk: int | None = None):
-    """SegsumPlan over sorted ``keys`` whose per-chunk tile range also
-    covers keys ≥ lo − margin (the slot shift key+a may move a key up to
-    ``margin`` segments forward, across a chunk boundary)."""
-    from tpu_ba.kernels.segsum import SegsumPlan, _round_up as ru
-
-    keys = np.asarray(keys)
-    O = keys.shape[0]
-    if O % tile != 0:
-        raise ValueError(f"{O} not a multiple of tile {tile}")
-    if np.any(np.diff(keys) < 0):
-        raise ValueError("keys must be sorted ascending")
-    if chunk is None:
-        avg_per_seg = O / max(n_out, 1)
-        chunk = int(min(2048, max(128,
-                                  ru(int(2.0 * tile / max(avg_per_seg, 1e-9)),
-                                     128))))
-    n_chunks = -(-n_out // chunk)
-    n_tiles = O // tile
-
-    lo = np.arange(n_chunks) * chunk
-    hi = np.minimum(lo + chunk, n_out)
-    first_obs = np.searchsorted(keys, np.maximum(lo - margin, 0), side="left")
-    last_obs = np.searchsorted(keys, hi - 1, side="right") - 1
-    empty = last_obs < first_obs
-    first_tile = np.minimum(first_obs // tile, n_tiles - 1)
-    last_tile = np.where(empty, first_tile,
-                         np.maximum(last_obs, first_obs) // tile)
-    counts = (last_tile - first_tile + 1).astype(np.int64)
-    G = int(counts.sum())
-    prog_chunk = np.repeat(np.arange(n_chunks, dtype=np.int64), counts)
-    offsets = np.concatenate([[0], np.cumsum(counts)])[:-1]
-    prog_tile = (np.arange(G, dtype=np.int64) - offsets[prog_chunk]
-                 + first_tile[prog_chunk])
-    prog_first = np.zeros(G, np.int64)
-    prog_first[offsets] = 1
-    return SegsumPlan(
-        prog_chunk=jnp.asarray(prog_chunk.astype(np.int32)),
-        prog_tile=jnp.asarray(prog_tile.astype(np.int32)),
-        prog_first=jnp.asarray(prog_first.astype(np.int32)),
-        n_obs=O, n_out=n_out, tile=tile, chunk=chunk,
-        n_chunks=int(n_chunks), grid=G,
-    )
-
-
 def shard_stack_track_layout(layout: TrackLayout, n_dev: int, *,
-                             tile: int = 2048,
-                             with_kernel_plans: bool = True) -> TrackLayout:
+                             tile: int = 2048) -> TrackLayout:
     """Split a global TrackLayout into ``n_dev`` per-device layouts and
-    stack them with a leading device axis (VERDICT r4 next #6 — the last
-    sharded-kernel-parity exclusion).
+    stack them with a leading device axis.
 
     The tracked points are start-camera-sorted, so a contiguous chunk of
-    layout columns is a contiguous band-row range per device; each device's
-    fused track kernel emits full-width band partials that psum exactly
-    like the pair-block psum (tpu_ba/solver/pairs.py solve_schur_sparse).
-    ``slot_idx`` holds GLOBAL observation ids — the sharded pack gathers
-    from the per-linearization all-gathered W, same as the pair gather.
-
-    Per-device margin plans share (tile, chunk, n_out, n_obs) by
-    construction (the auto-chunk formula depends only on those), so
-    ``pad_stack_segsum_plans`` stacks them for shard_map delivery."""
-    from tpu_ba.kernels.segsum import pad_stack_segsum_plans
-
+    layout columns is a contiguous band-row range per device; each device
+    emits full-width band partials that psum exactly like the pair-block
+    psum (tpu_ba/solver/pairs.py solve_schur_sparse). ``slot_idx`` holds
+    GLOBAL observation ids — the sharded pack gathers from the
+    per-linearization all-gathered W, same as the pair gather."""
     nt = layout.n_tracked
     nd = -(-max(nt, 1) // n_dev)                   # columns per device
     pt_pad_dev = _round_up(nd, tile)
@@ -231,7 +165,7 @@ def shard_stack_track_layout(layout: TrackLayout, n_dev: int, *,
     keys = np.asarray(layout.keys)
     fill_key = int(keys[max(nt - 1, 0)])           # keeps keys sorted
 
-    si, sm, vp, ky, plans = [], [], [], [], []
+    si, sm, vp, ky = [], [], [], []
     for d in range(n_dev):
         lo, hi = d * nd, min((d + 1) * nd, nt)
         w = max(hi - lo, 0)
@@ -242,16 +176,11 @@ def shard_stack_track_layout(layout: TrackLayout, n_dev: int, *,
         sm.append(np.pad(slot_mask[:, lo:hi], ((0, 0), (0, pad))))
         vp.append(np.pad(vperm[lo:hi], (0, pad)))
         ky.append(np.concatenate([k_dev, np.full(pad, fill, k_dev.dtype)]))
-        if with_kernel_plans:
-            plans.append(_build_margin_plan(ky[-1], layout.n_out, tile=tile,
-                                            margin=layout.dmax - 1))
-    plan = pad_stack_segsum_plans(plans) if plans else None
     return TrackLayout(
         slot_idx=jnp.asarray(np.stack(si).astype(np.int32)),
         slot_mask=jnp.asarray(np.stack(sm).astype(np.float32)),
         vperm=jnp.asarray(np.stack(vp).astype(np.int32)),
         keys=jnp.asarray(np.stack(ky).astype(np.int32)),
-        plan=plan,
         dmax=layout.dmax, n_tracked=nt, pt_pad=pt_pad_dev,
         n_out=layout.n_out,
     )
@@ -260,13 +189,10 @@ def shard_stack_track_layout(layout: TrackLayout, n_dev: int, *,
 def unstack_track_layout(layout: TrackLayout) -> TrackLayout:
     """Inside shard_map: drop the leading (length-1) device axis of a
     stacked TrackLayout."""
-    from tpu_ba.kernels.segsum import unstack_plan
-
     return dataclasses.replace(
         layout,
         slot_idx=layout.slot_idx[0], slot_mask=layout.slot_mask[0],
-        vperm=layout.vperm[0], keys=layout.keys[0],
-        plan=unstack_plan(layout.plan) if layout.plan is not None else None)
+        vperm=layout.vperm[0], keys=layout.keys[0])
 
 
 def gather_track_data(W, V, layout: TrackLayout):
@@ -281,8 +207,8 @@ def gather_track_data(W, V, layout: TrackLayout):
 
 def track_blocks_jnp(Wt, Vt, lam, layout: TrackLayout, dc: int,
                      diag_floor: float, diag_ceil: float):
-    """jnp oracle/fallback for the fused track kernel: per-slot-pair
-    products reduced by start camera. Returns (dmax·dc², n_out)."""
+    """Band blocks of the tracked points: per-slot-pair products reduced by
+    start camera. Returns (dmax·dc², n_out)."""
     from tpu_ba.solver.schur import inv3x3_rows
 
     d2 = dc * dc

@@ -20,10 +20,9 @@ camera eliminates its +-s neighbours simultaneously,
 
 After ceil(log2(C)) levels the system is block-diagonal: z = D^-1 r. The
 factorization (P^k, Q^k, final D^-1) depends only on (S, lambda) — computed
-ONCE per lambda-retry in plain XLA ops (batched 9x9 Gauss-Jordan +
-matmuls); each CG preconditioner APPLICATION is just 2 batched 9x9
-block-matvecs + 2 lane rolls per level — VMEM-resident inside the PCG
-kernel (tpu_ba/kernels/pcg_band.py), matching its apply_S structure.
+ONCE per lambda-retry (batched 9x9 Gauss-Jordan + matmuls); each CG
+preconditioner APPLICATION is just 2 batched 9x9 block-matvecs + 2 shifts
+per level.
 
 Exactness: full-depth PCR is algebraically M^-1 (symmetric positive
 definite), so CG theory holds unchanged. Oracle-tested against a dense
@@ -86,8 +85,7 @@ def pcr_factor(D, B_up):
 
 
 def pcr_apply(P, Q, Dinv_fin, r):
-    """Apply the PCR-factored M^-1 to r (C, dc). jnp oracle / non-kernel
-    path; the VMEM kernel twin lives in tpu_ba/kernels/pcg_band.py."""
+    """Apply the PCR-factored M^-1 to r (C, dc)."""
     K = P.shape[0]
     for k in range(K):
         s = 1 << k
@@ -109,18 +107,3 @@ def tridiag_from_band(blk, diag_S, pairs, dc: int):
     # row C-1 must not couple past the end (wraparound pairs with offset 1
     # cannot exist: ci <= cj and cj = ci+1 < C by construction)
     return diag_S, B_up
-
-
-def factor_t(P, Q, Dinv_fin, c_pad: int):
-    """Re-pack the factorization lane-major for the VMEM kernel:
-    P/Q (K, C, dc, dc) -> (K*dc*dc, c_pad); Dinv (dc*dc, c_pad)."""
-    K, C, dc, _ = P.shape
-    f32 = jnp.float32
-
-    def lanes(X):                                      # (C, dc, dc) -> (d2, cp)
-        Xt = X.transpose(1, 2, 0).reshape(dc * dc, C).astype(f32)
-        return jnp.pad(Xt, ((0, 0), (0, c_pad - C)))
-
-    p_t = jnp.concatenate([lanes(P[k]) for k in range(K)], axis=0)
-    q_t = jnp.concatenate([lanes(Q[k]) for k in range(K)], axis=0)
-    return p_t, q_t, lanes(Dinv_fin)
